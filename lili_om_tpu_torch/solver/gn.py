@@ -1,0 +1,42 @@
+"""Dense batched Gauss-Newton / Levenberg-Marquardt building blocks (port of
+``lili_om_tpu/solver/gn.py``). A singular system gives a zero step, as the
+JAX Cholesky's NaNs do there: ``cholesky_ex`` reports the failure without a
+host sync and the step is zeroed."""
+from __future__ import annotations
+
+import torch
+
+
+def block_hessian(J: torch.Tensor, r: torch.Tensor, w: torch.Tensor | None = None):
+    """(H, b) = (JᵀJ, −Jᵀr) over N residual rows, with optional row weights."""
+    if w is not None:
+        J = J * w[:, None]
+        r = r * w
+    return J.T @ J, -(J.T @ r)
+
+
+def _cholesky_solve(Hd: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    L, info = torch.linalg.cholesky_ex(Hd)
+    y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
+    delta = torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
+    good = (info == 0) & torch.all(torch.isfinite(delta))
+    return torch.where(good, delta, torch.zeros_like(delta))
+
+
+def solve_normal(H: torch.Tensor, b: torch.Tensor, damping=0.0) -> torch.Tensor:
+    """Solve (H + λI) δ = b by Cholesky; a failed factorization gives δ = 0."""
+    D = H.shape[-1]
+    return _cholesky_solve(H + damping * torch.eye(D, dtype=H.dtype, device=H.device), b)
+
+
+def solve_normal_lm(H: torch.Tensor, b: torch.Tensor, lam_rel) -> torch.Tensor:
+    """Marquardt-scaled damped solve: (H + λ·diag(H)) δ = b."""
+    d = torch.clamp(torch.diagonal(H), min=1e-12)
+    return _cholesky_solve(H + lam_rel * torch.diag(d), b)
+
+
+def gn_update(J: torch.Tensor, r: torch.Tensor, damping: float = 1e-6,
+              w: torch.Tensor | None = None) -> torch.Tensor:
+    """One Gauss-Newton step δ = (JᵀJ)⁻¹·(−Jᵀr) from batched rows."""
+    H, b = block_hessian(J, r, w)
+    return solve_normal(H, b, damping)

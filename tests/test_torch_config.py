@@ -1,0 +1,65 @@
+"""The port's copies of the config NamedTuples and of the ``fr_iosb_rot``
+preset against the JAX package's: same fields, same defaults, same values."""
+import dataclasses
+
+import pytest
+
+from lili_om_tpu.models import fusion as JFu
+from lili_om_tpu.models import odometry as JO
+from lili_om_tpu.ops import features_spin as JS
+from lili_om_tpu.ops import preintegration as JP
+from lili_om_tpu.utils import config as JC
+from lili_om_tpu_torch.frame import bench_configs
+from lili_om_tpu_torch.models import fusion as TFu
+from lili_om_tpu_torch.models import odometry as TO
+from lili_om_tpu_torch.ops import features_spin as TS
+from lili_om_tpu_torch.ops import preintegration as TP
+from lili_om_tpu_torch.utils import config as TC
+
+PAIRS = {
+    "OdometryConfig": (JO.OdometryConfig, TO.OdometryConfig),
+    "FusionConfig": (JFu.FusionConfig, TFu.FusionConfig),
+    "SpinFeatureConfig": (JS.SpinFeatureConfig, TS.SpinFeatureConfig),
+    "ImuNoise": (JP.ImuNoise, TP.ImuNoise),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_fields_and_defaults(name):
+    j, t = PAIRS[name]
+    assert j._fields == t._fields
+    assert j()._asdict() == t()._asdict()
+
+
+@pytest.mark.parametrize("section", ["odometry", "fusion", "spin_features", "imu_noise"])
+def test_fr_iosb_rot_sections(section):
+    j = getattr(JC.load_config("fr_iosb_rot"), section)
+    t = getattr(TC.load_config("fr_iosb_rot"), section)
+    assert j._asdict() == t._asdict()
+
+
+def test_fr_iosb_rot_scalars():
+    """Every plain field the port's SystemConfig keeps equals the JAX one."""
+    j, t = JC.load_config("fr_iosb_rot"), TC.load_config("fr_iosb_rot")
+    for f in dataclasses.fields(t):
+        v = getattr(t, f.name)
+        if not hasattr(v, "_fields"):
+            assert v == getattr(j, f.name), f.name
+
+
+def test_bench_configs_match_bench_py():
+    """``Frame``'s default configs are the ones bench.py runs: the preset
+    with fusion capped at 15 iterations and 32 IMU samples."""
+    rot = JC.load_config("fr_iosb_rot")
+    feats, odo, fus, noise = bench_configs()
+    assert feats._asdict() == rot.spin_features._asdict()
+    assert odo._asdict() == rot.odometry._asdict()
+    assert fus._asdict() == rot.fusion._replace(max_num_iter=15, imu_cap=32)._asdict()
+    assert noise._asdict() == rot.imu_noise._asdict()
+    assert (odo.query_cap, odo.map_cap, odo.scan_match_cnt, odo.gn_iters) == (4096, 32768, 1, 12)
+    assert (fus.window, fus.local_map_width) == (3, 50)
+
+
+def test_unported_preset_raises():
+    with pytest.raises(NotImplementedError):
+        TC.load_config("fr_iosb")

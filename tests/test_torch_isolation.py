@@ -1,0 +1,90 @@
+"""The port stands alone: no module of ``lili_om_tpu_torch`` and not
+``chip_smoke.py`` imports ``jax`` or the JAX package, the package imports
+with ``jax`` made unimportable, and its entry points refuse to drop to the
+CPU on their own."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "lili_om_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "lili_om_tpu")
+
+
+def _imports(path: Path):
+    """Absolute module names a file imports (relative imports stay inside
+    the package and are resolved against it)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_forbidden_matches_the_package_not_the_port():
+    assert _forbidden("lili_om_tpu") and _forbidden("lili_om_tpu.ops.knn")
+    assert _forbidden("jax.numpy")
+    assert not _forbidden("lili_om_tpu_torch") and not _forbidden("lili_om_tpu_torch.ops")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_imports_without_jax():
+    """``import`` every module of the port with ``jax`` and the JAX package
+    made unimportable."""
+    mods = sorted({".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+                   for p in PORT.rglob("*.py")})
+    code = ("import sys, importlib\n"
+            "for m in ('jax', 'jaxlib', 'lili_om_tpu'): sys.modules[m] = None\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def _entry_points():
+    from lili_om_tpu_torch.frame import Frame, bench_configs, sim_scans
+    from lili_om_tpu_torch.models.fusion import fusion_step, init_fusion_state
+    from lili_om_tpu_torch.models.odometry import init_state, odometry_step
+    from lili_om_tpu_torch.ops.features_spin import extract_features_spin
+
+    feats, odo, fus, noise = bench_configs()
+    z = torch.zeros
+    return {
+        "init_state": lambda: init_state(odo),
+        "init_fusion_state": lambda: init_fusion_state(fus, noise),
+        "odometry_step": lambda: odometry_step(init_state(odo, device="cpu"),
+                                               z((8, 3)), z(8, dtype=torch.bool), odo),
+        "fusion_step": lambda: fusion_step(
+            init_fusion_state(fus, noise, device="cpu"), z((8, 3)), z(8, dtype=torch.bool),
+            z(8), z((8, 3)), z(8, dtype=torch.bool), z(4), z((4, 3)), z((4, 3)),
+            z(4, dtype=torch.bool), fus, noise),
+        "extract_features_spin": lambda: extract_features_spin(
+            z((4, 60, 3)), z((4, 60), dtype=torch.bool), z((4, 60)), feats),
+        "Frame": lambda: Frame(),
+        "sim_scans": lambda: sim_scans(1, rings=4, cols=60),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_device_none_without_cuda_raises(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()

@@ -1,0 +1,192 @@
+"""ops/knn: the port's plain kNN against the JAX package's ``knn`` and its two
+Pallas kernels in interpret mode (``knn_pallas_counted``, ``knn_pallas``),
+the contract cases, the device dispatch, and — on a machine with a GPU — the
+CUDA kernel against the plain version."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lili_om_tpu.ops.knn import knn as jknn
+from lili_om_tpu.ops.knn_pallas import knn_pallas, knn_pallas_counted
+from lili_om_tpu_torch.ops import knn as K
+from lili_om_tpu_torch.utils.math import quat_normalize, quat_rotate
+from test_torch_common import npy
+
+
+def _cloud(seed, nq=300, npts=3000, scale=5.0):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(nq, 3)) * scale, rng.normal(size=(npts, 3)) * scale, rng)
+
+
+def _gathered(q, p, idx):
+    return np.sum((q[:, None, :] - p[idx]) ** 2, axis=-1)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_plain_matches_jax_knn(dtype):
+    """Same contract, same points: float64 agrees to 1e-9 relative (the JAX
+    side expands ‖q‖²+‖p‖²−2q·p around the map centroid, the port takes
+    (q−p)² directly); float32 to 1e-4 relative for the same reason. Indices
+    agree wherever no two candidates tie within that tolerance."""
+    q, p, rng = _cloud(0)
+    mask = rng.uniform(size=p.shape[0]) > 0.2
+    jd, ji = jknn(jnp.asarray(q, dtype), jnp.asarray(p, dtype), k=5, p_mask=jnp.asarray(mask))
+    td, ti = K.knn(torch.as_tensor(q, dtype=getattr(torch, dtype)),
+                   torch.as_tensor(p, dtype=getattr(torch, dtype)), k=5,
+                   p_mask=torch.as_tensor(mask))
+    tol = 1e-9 if dtype == "float64" else 1e-4
+    np.testing.assert_allclose(npy(td), np.asarray(jd), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_gathered(q, p, npy(ti)), _gathered(q, p, np.asarray(ji)),
+                               rtol=tol, atol=tol)
+    if dtype == "float64":
+        np.testing.assert_array_equal(npy(ti), np.asarray(ji))
+    assert np.all(mask[npy(ti)])
+
+
+@pytest.mark.parametrize("tile_p", [256, 512])
+@pytest.mark.parametrize("pallas", ["counted", "dense"])
+def test_plain_matches_pallas_interpret(pallas, tile_p):
+    """Against the Pallas kernels run in interpret mode, with the small
+    blocks of tests/test_knn_pallas.py. The Pallas side packs the lane index
+    into the low 12 mantissa bits, so its distances are truncated to 2⁻¹²:
+    rtol 1e-3, and neighbours are compared through their gathered distances."""
+    q, p, rng = _cloud(1)
+    q32, p32 = q.astype(np.float32), p.astype(np.float32)
+    pm = np.zeros(p.shape[0], bool)
+    pm[:1800] = True  # front-compacted, as the voxel tables emit
+    qm = rng.uniform(size=q.shape[0]) > 0.3
+    if pallas == "counted":
+        jd, ji = knn_pallas_counted(jnp.asarray(q32), jnp.asarray(p32), k=5,
+                                    p_mask=jnp.asarray(pm), q_mask=jnp.asarray(qm),
+                                    q_block=128, tile_p=tile_p, interpret=True)
+    else:
+        jd, ji = knn_pallas(jnp.asarray(q32), jnp.asarray(p32), k=5, p_mask=jnp.asarray(pm),
+                            q_block=128, tile_p=tile_p, interpret=True)
+    td, ti = K.knn(torch.as_tensor(q32), torch.as_tensor(p32), k=5,
+                   p_mask=torch.as_tensor(pm), q_mask=torch.as_tensor(qm))
+    rows = qm
+    np.testing.assert_allclose(npy(td)[rows], np.asarray(jd)[rows], rtol=1e-3, atol=1e-4)
+    g_t = _gathered(q32.astype(np.float64), p32.astype(np.float64), npy(ti))
+    g_j = _gathered(q32.astype(np.float64), p32.astype(np.float64), np.asarray(ji))
+    np.testing.assert_allclose(g_t[rows], g_j[rows], rtol=1e-3, atol=1e-4)
+    # invalid query rows: (+inf, 0) from the port
+    assert np.all(np.isinf(npy(td)[~rows])) and np.all(npy(ti)[~rows] == 0)
+
+
+def test_masked_points_never_match():
+    q = torch.zeros((4, 3))
+    p = torch.stack([torch.arange(512, dtype=torch.float32)] * 3, dim=1) / 100.0
+    mask = torch.arange(512) % 2 == 0
+    d, i = K.knn(q, p, k=5, p_mask=mask)
+    assert torch.all(i % 2 == 0)
+    assert torch.all(torch.isfinite(d))
+
+
+def test_surplus_slots_are_inf_and_zero():
+    """Fewer valid points than k: the surplus slots give (+inf, 0)."""
+    pts = torch.tensor([[0.0, 0, 0], [1, 0, 0], [2, 0, 0], [9, 9, 9], [8, 8, 8]])
+    mask = torch.tensor([True, True, True, False, False])
+    q = torch.tensor([[0.1, 0, 0], [5.0, 5, 5]])
+    d, i = K.knn(q, pts, k=5, p_mask=mask)
+    assert torch.all(torch.isinf(d[:, 3:])) and torch.all(i[:, 3:] == 0)
+    assert torch.all(i[:, :3] < 3)
+
+
+def test_invalid_query_rows_are_inf_and_zero():
+    q, p, rng = _cloud(2, nq=64, npts=256)
+    qm = torch.as_tensor(rng.uniform(size=64) > 0.5)
+    d, i = K.knn(torch.as_tensor(q), torch.as_tensor(p), k=5, q_mask=qm)
+    assert torch.all(torch.isinf(d[~qm])) and torch.all(i[~qm] == 0)
+    assert torch.all(torch.isfinite(d[qm]))
+
+
+def test_empty_map():
+    d, i = K.knn(torch.zeros((4, 3)), torch.ones((512, 3)), k=5,
+                 p_mask=torch.zeros(512, dtype=torch.bool))
+    assert torch.all(torch.isinf(d)) and torch.all(i == 0)
+
+
+def test_ties_go_to_the_lower_index():
+    """Equal distances: the lower map index comes first (the CUDA kernel's
+    strict compares over ascending indices give the same order)."""
+    p = torch.tensor([[1.0, 0, 0], [-1.0, 0, 0], [0, 1.0, 0], [0, -1.0, 0], [0, 0, 1.0],
+                      [0, 0, -1.0], [2.0, 0, 0]])
+    d, i = K.knn(torch.zeros((1, 3)), p, k=5, tile_elems=1)  # one point per tile
+    assert i[0].tolist() == [0, 1, 2, 3, 4]
+    assert torch.all(d == 1.0)
+
+
+def test_far_from_origin_accuracy():
+    """A 500 m offset: f32 distances taken directly as (q−p)² stay within
+    1e-4 m² of float64 brute force (the JAX expansion needs re-centering
+    for this; the direct form does not)."""
+    rng = np.random.default_rng(7)
+    q = (rng.uniform(-10, 10, (64, 3)) + 500.0).astype(np.float32)
+    p = (rng.uniform(-10, 10, (512, 3)) + 500.0).astype(np.float32)
+    d_true = np.sort(np.sum((q[:, None].astype(np.float64) - p[None].astype(np.float64)) ** 2,
+                            axis=-1), axis=1)[:, :5]
+    d, _ = K.knn(torch.as_tensor(q), torch.as_tensor(p), k=5)
+    np.testing.assert_allclose(npy(d), d_true, atol=1e-4)
+
+
+def test_tiling_does_not_change_the_result():
+    q, p, rng = _cloud(3, nq=100, npts=2000)
+    pm = torch.as_tensor(rng.uniform(size=2000) > 0.4)
+    a = K.knn(torch.as_tensor(q), torch.as_tensor(p), k=5, p_mask=pm)
+    b = K.knn(torch.as_tensor(q), torch.as_tensor(p), k=5, p_mask=pm, tile_elems=100 * 300)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_auto_dispatch_on_cpu_runs_the_plain_version():
+    q, p, rng = _cloud(4, nq=50, npts=400)
+    qt, pt = torch.as_tensor(q), torch.as_tensor(p)
+    pm = torch.as_tensor(rng.uniform(size=400) > 0.3)
+    K.reset_launch_counts()
+    d, i = K.knn_auto(qt, pt, k=5, p_mask=pm)
+    ref = K.knn(qt, pt, k=5, p_mask=pm)
+    assert torch.equal(d, ref[0]) and torch.equal(i, ref[1])
+    # world transform + search, and the surf/edge pair
+    t = torch.tensor([0.3, -1.0, 2.0], dtype=torch.float64)
+    qq = quat_normalize(torch.tensor([0.9, 0.1, -0.2, 0.3], dtype=torch.float64))
+    pw, d2, idx = K.world_knn_auto(t, qq, qt, pt, k=5, p_mask=pm)
+    assert torch.allclose(pw, quat_rotate(qq[None], qt) + t)
+    ref = K.knn(pw, pt, k=5, p_mask=pm)
+    assert torch.equal(d2, ref[0]) and torch.equal(idx, ref[1])
+    out = K.knn_pair_auto(qt, pt, pm, qt[:10], pt[:100], None, k=5)
+    assert len(out) == 4 and torch.equal(out[0], d)
+    assert K.launch_count() == 0
+
+
+@pytest.mark.parametrize("wrapper", ["knn_counted_cuda", "knn_dense_cuda"])
+def test_cuda_wrappers_refuse_cpu_tensors(wrapper):
+    """The kernel wrappers never fall back: a CPU tensor raises."""
+    with pytest.raises(ValueError):
+        getattr(K, wrapper)(torch.zeros((4, 3)), torch.zeros((8, 3)), 5)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode "
+                    "(chip_smoke.py holds it against the plain version on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counted", [True, False])
+def test_cuda_kernel_matches_plain(cuda, counted):
+    """On the card: the kernel against the plain version, same f32 inputs.
+    Both sum ((dx²+dy²)+dz²) without FMA and break ties toward the lower
+    index, so distances and indices agree exactly."""
+    q, p, rng = _cloud(5, nq=1000, npts=5000)
+    qt = torch.as_tensor(q, dtype=torch.float32, device=cuda)
+    pt = torch.as_tensor(p, dtype=torch.float32, device=cuda)
+    pm = torch.zeros(5000, dtype=torch.bool, device=cuda)
+    pm[:3000] = True
+    qm = torch.as_tensor(rng.uniform(size=1000) > 0.3, device=cuda)
+    fn = K.knn_counted_cuda if counted else K.knn_dense_cuda
+    d, i = fn(qt, pt, 5, pm, qm)
+    rd, ri = K.knn(qt, pt, k=5, p_mask=pm, q_mask=qm)
+    torch.cuda.synchronize()
+    assert torch.equal(d, rd) and torch.equal(i, ri)

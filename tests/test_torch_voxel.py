@@ -1,0 +1,141 @@
+"""ops/voxel: the functions on the per-scan path against the JAX package.
+Output slots come out in ascending scrambled-key order on both sides, so
+they are compared slot by slot: keys, cells, masks and counts exactly; the
+centroid sums (summed in another order inside a voxel) to 1e-12 in float64
+and 1e-5 m in float32."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lili_om_tpu.ops import voxel as JV
+from lili_om_tpu_torch.ops import voxel as TV
+from test_torch_common import npy, port_sim_frames
+
+
+TOL = {"float64": 1e-12, "float32": 1e-5}
+
+
+@pytest.fixture(scope="module")
+def scan():
+    fr, _ = port_sim_frames(2)
+    return fr[1]
+
+
+def _same(a, b, dtype, exact=False):
+    a, b = np.asarray(a), npy(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    if exact or a.dtype == np.bool_ or np.issubdtype(a.dtype, np.integer):
+        np.testing.assert_array_equal(b, a)
+    else:
+        np.testing.assert_allclose(b.astype(np.float64), a.astype(np.float64),
+                                   rtol=TOL[dtype], atol=TOL[dtype] * 10)
+
+
+def test_scramble_bit_exact():
+    """The int64-masked port of the uint32 mix gives the JAX int32 values,
+    sign bit included, over the whole key range."""
+    rng = np.random.default_rng(0)
+    keys = np.concatenate([rng.integers(-2**31, 2**31 - 1, 20000, dtype=np.int64),
+                           [0, 1, -1, 2**31 - 1, -2**31, 2**30]]).astype(np.int32)
+    _same(JV._scramble(jnp.asarray(keys)), TV._scramble(torch.as_tensor(keys)), "float64")
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_voxel_keys(scan, dtype):
+    pts = scan["img"].reshape(-1, 3)
+    mask = scan["valid"].reshape(-1)
+    _same(JV.voxel_keys(jnp.asarray(pts, getattr(jnp, dtype)), 0.4, jnp.asarray(mask)),
+          TV.voxel_keys(torch.as_tensor(pts, dtype=getattr(torch, dtype)), 0.4,
+                        torch.as_tensor(mask)), dtype)
+
+
+def _cloud(scan, dtype):
+    pts = scan["img"].reshape(-1, 3)
+    mask = scan["valid"].reshape(-1)
+    R = scan["img"].shape[0]
+    groups = np.repeat(np.arange(R, dtype=np.int32), scan["img"].shape[1])
+    feats = scan["rel"].reshape(-1, 1)
+    j = (jnp.asarray(pts, getattr(jnp, dtype)), jnp.asarray(mask), jnp.asarray(feats, getattr(jnp, dtype)),
+         jnp.asarray(groups))
+    t = (torch.as_tensor(pts, dtype=getattr(torch, dtype)), torch.as_tensor(mask),
+         torch.as_tensor(feats, dtype=getattr(torch, dtype)), torch.as_tensor(groups))
+    return j, t
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("ordered", [False, True])
+@pytest.mark.parametrize("variant", ["plain", "feats_groups", "overflow"])
+def test_voxel_downsample(scan, dtype, ordered, variant):
+    """Slot-by-slot parity, with per-ring groups and a feature channel, and
+    at a capacity the cloud overflows (voxels dropped in hash order)."""
+    (jp, jm, jf, jg), (tp, tm, tf, tg) = _cloud(scan, dtype)
+    cap = 512 if variant == "overflow" else 4096
+    kw_j, kw_t = {}, {}
+    if variant == "feats_groups":
+        kw_j, kw_t = {"feats": jf, "groups": jg}, {"feats": tf, "groups": tg}
+    jfn = JV.voxel_downsample_ordered if ordered else JV.voxel_downsample
+    tfn = TV.voxel_downsample_ordered if ordered else TV.voxel_downsample
+    jo = jfn(jp, jm, 0.4, cap, **kw_j)
+    to = tfn(tp, tm, 0.4, cap, **kw_t)
+    assert len(jo) == len(to)
+    _same(jo[-1], to[-1], dtype)  # masks
+    assert 0 < int(np.sum(np.asarray(jo[-1]))) <= cap
+    for a, b in zip(jo[:-1], to[:-1]):
+        _same(a, b, dtype)
+    if variant == "overflow":
+        assert bool(np.asarray(jo[-1]).all())
+
+
+def test_valid_first_tables(scan):
+    """Valid segments occupy the leading rows (the kNN kernel's walk bound)."""
+    _, (tp, tm, _, tg) = _cloud(scan, "float32")
+    for out in (TV.voxel_downsample(tp, tm, 0.4, 4096),
+                TV.voxel_downsample_ordered(tp, tm, 0.4, 4096, groups=tg)):
+        m = npy(out[-1])
+        n = int(m.sum())
+        assert m[:n].all() and not m[n:].any()
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("second", [False, True])
+def test_merge_voxel_entries(scan, dtype, second):
+    """A table update as the odometry and fusion steps make it: a table,
+    new entries (+1 counts) and evicted ones (−1 counts) that cancel some
+    voxels; with ``second`` also the two-selection form of the fusion map."""
+    pts = scan["img"].reshape(-1, 3)
+    mask = scan["valid"].reshape(-1)
+    (jp, jm, _, _), _ = _cloud(scan, dtype)
+    table, tmask = (np.asarray(x) for x in JV.voxel_downsample(jp, jm, 0.4, 2048))
+    rng = np.random.default_rng(1)
+    new = pts[mask][rng.choice(int(mask.sum()), 1500, replace=False)] + 0.05
+    ev = table[:600]
+    ev_mask = tmask[:600] & (rng.uniform(size=600) > 0.3)
+    leaf = 0.4
+    cells = np.concatenate([np.floor(table / leaf), np.floor(new / leaf),
+                            np.floor(ev / leaf)]).astype(np.int32)
+    sums = np.concatenate([table, new, -ev])
+    cnt = np.concatenate([tmask.astype(float), np.ones(1500), -ev_mask.astype(float)])
+    valid = np.concatenate([tmask, np.ones(1500, bool), ev_mask])
+    sel = rng.uniform(size=valid.shape[0]) > 0.4
+    args_j = [jnp.asarray(cells), jnp.asarray(sums, getattr(jnp, dtype)),
+              jnp.asarray(cnt, getattr(jnp, dtype)), jnp.asarray(valid)]
+    args_t = [torch.as_tensor(cells), torch.as_tensor(sums, dtype=getattr(torch, dtype)),
+              torch.as_tensor(cnt, dtype=getattr(torch, dtype)), torch.as_tensor(valid)]
+    kw_j = {"second_sel": jnp.asarray(sel)} if second else {}
+    kw_t = {"second_sel": torch.as_tensor(sel)} if second else {}
+    jo = JV.merge_voxel_entries(*args_j, 3000, **kw_j)
+    to = TV.merge_voxel_entries(*args_t, 3000, **kw_t)
+    if second:
+        jo, to = jo[0] + jo[1], to[0] + to[1]
+    for a, b in zip(jo, to):
+        _same(a, b, dtype)
+
+
+@pytest.mark.parametrize("n", [100, 5000])
+def test_pad_cloud(n):
+    rng = np.random.default_rng(2)
+    pts, mask = rng.normal(size=(n, 3)), rng.uniform(size=n) > 0.5
+    for a, b in zip(JV.pad_cloud(jnp.asarray(pts), jnp.asarray(mask), 1024),
+                    TV.pad_cloud(torch.as_tensor(pts), torch.as_tensor(mask), 1024)):
+        _same(a, b, "float64", exact=True)
