@@ -22,7 +22,20 @@ Phases, each printing its own line; any failed check exits non-zero:
    and the least time the card could take (the larger of bytes over
    3.35 TB/s and 8 f32 operations per needed (query, point) pair over
    67 TFLOP/s, H100 SXM data-sheet peaks);
-6. with ``--profile``, a ``torch.profiler`` window over a few main-path
+6. system phase: the port's ``LiliOmSystem`` at the full ``fr_iosb_rot``
+   width (preset odometry, fusion, features and loop-closure widths) over a
+   simulated lap at walking speed that returns to its start, IMU pushed up
+   front, ``try_loop_closure`` every 10 scans, ``LILI_OM_KNN_PRUNED=1``
+   throughout: at least one closure fires (ICP, graph solve, correction),
+   the next keyframe rebuilds the fusion maps, every search launches the
+   pruned kernel (B3) and none the count-bounded one, and the corrected
+   keyframes stay near the simulator's; after the lap, each closure
+   attempt's fitness untrimmed and trimmed, and how far its submaps lie
+   from the simulated world's surfaces (with ``--out``, the submaps go to
+   ``icp_attempts.npz`` for ``python3 -m tools.replay_icp``); then B3 against the
+   plain version and B1 on the inputs each of its call sites gave it, its
+   bound counting only the pairs of the tiles it scanned;
+7. with ``--profile``, a ``torch.profiler`` window over a few main-path
    frames (device busy share, kernels by device time).
 
 Then one line with the ``kernels`` JSON, the ``nvidia-smi`` name/power-limit
@@ -32,19 +45,28 @@ JAX package and needs no network.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from lili_om_tpu_torch import cuda_build
 from lili_om_tpu_torch.frame import Frame, bench_configs, sim_scans
+from lili_om_tpu_torch.models import system as system_mod
+from lili_om_tpu_torch.models.system import LiliOmSystem
 from lili_om_tpu_torch.ops import knn as K
-from lili_om_tpu_torch.sim.trajectory import pose_at
-from lili_om_tpu_torch.utils.math import pose_relative, quat_conj, quat_mul
+from lili_om_tpu_torch.sim.lidar import simulate_scan, spinning_pattern
+from lili_om_tpu_torch.sim.trajectory import circle_trajectory, pose_at, simulate_imu
+from lili_om_tpu_torch.sim.world import World, make_room_world
+from lili_om_tpu_torch.utils.config import load_config
+from lili_om_tpu_torch.utils.math import (pose_relative, quat_conj, quat_conj_np, quat_mul,
+                                          quat_rotate, quat_rotate_np)
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -61,8 +83,33 @@ TRAJ_TOL_M, TRAJ_TOL_RAD = 5e-3, 5e-3
 # odometry against the simulator's ground truth over a short run from rest
 GT_TOL_M, GT_TOL_RAD = 0.25, 0.05
 REPLACES = {"knn_counted": "lili_om_tpu/ops/knn_pallas.py:234",
-            "knn_dense": "lili_om_tpu/ops/knn_pallas.py:64"}
+            "knn_dense": "lili_om_tpu/ops/knn_pallas.py:64",
+            "knn_pruned": "lili_om_tpu/ops/knn_pallas.py:426"}
 SOURCE = "lili_om_tpu_torch/csrc/knn.cu"
+SOURCE_PRUNED = "lili_om_tpu_torch/csrc/knn_pruned.cu"
+# system phase: scans, the lap (returns to its start at scan ~139, the
+# speed ramp of circle_trajectory included), closure attempts every 10 scans
+SYS_SCANS = 150
+SYS_RINGS, SYS_COLS = 64, 1800
+SYS_LAP_S = (SYS_SCANS - 40) * 0.1
+LC_EVERY = 10
+# B3's inputs are copied at the first call of each call site from this scan
+# on: the maps are grown by then, and the closure attempt at this scan runs
+# ICP
+SYS_RECORD_FROM = 40
+# the closure attempts, read after the lap: the fitness trimmed to the best
+# 70 % (examples/run_loop_closure.py's icp_trim) at the ICP's final pose, and
+# the share of source points farther than FAR_M from the target; matches
+# beyond ICP's max_corr_dist do not count, as in its own fitness
+ICP_TRIM, FAR_M, ICP_MAX_CORR_M = 0.7, 1.0, 30.0
+# graph keyframes against the simulator after the closures, RMSE (the JAX
+# package's golden-loop harness, examples/evaluate_presets.py, bounds its
+# keyframe error at 1.0 m)
+KF_RMSE_TOL_M = 0.5
+# median distance of a loop submap's points to the simulated world's
+# surfaces: the keyframe poses' error (the bound above) plus the features'
+# own spread
+SUBMAP_SURF_TOL_M = 0.25
 DEV = "cuda"
 
 
@@ -117,7 +164,7 @@ def run_path(cfgs, scans, label: str):
           f"{timed[len(timed) // 2]:.3f} min {timed[0]:.3f} max {timed[-1]:.3f}; "
           f"event ms median {sorted(dev_ms[N_WARM:])[len(timed) // 2]:.3f}; "
           f"launches {sum(counts.values())} "
-          f"{ {f'{w}:{q}x{p}': n for (w, q, p), n in sorted(counts.items())} }")
+          f"{ {f'{w}:{q}x{p}:k{k}': n for (w, q, p, k), n in sorted(counts.items())} }")
     return frame, poses, host_ms, counts
 
 
@@ -143,27 +190,74 @@ def traj_gap(pa, pb):
     return gt, gr
 
 
+class Patch:
+    """Replaces ``module.<name>`` with ``self`` for a ``with`` block."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.orig = module, name, getattr(module, name)
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+class Recorder(Patch):
+    """Wraps the kernel wrapper ``K.<name>`` for a run: every call launches
+    the kernel once, as unwrapped, and while ``armed`` the inputs of the
+    first call at each call site (Q, P, k) are copied for the kernel checks
+    (one copy per site, so a timed run pays for a few copies only)."""
+
+    def __init__(self, name: str, armed: bool = True):
+        super().__init__(K, name)
+        self.armed, self.seen = armed, {}
+
+    def __call__(self, queries, points, k=5, p_mask=None, q_mask=None):
+        key = (queries.shape[0], points.shape[0], k)
+        if self.armed and key not in self.seen:
+            self.seen[key] = tuple(None if x is None else x.clone()
+                                   for x in (queries, points, p_mask, q_mask))
+        return self.orig(queries, points, k, p_mask, q_mask)
+
+
+class IcpSpy(Patch):
+    """Wraps the system's ``icp_point_to_plane``: keeps each attempt's
+    submaps and result (by reference: the submaps are fresh tensors) under
+    the scan index ``scan`` that the caller sets."""
+
+    def __init__(self):
+        super().__init__(system_mod, "icp_point_to_plane")
+        self.scan, self.calls = -1, []
+
+    def __call__(self, src, src_m, tgt, tgt_m, *args, **kw):
+        res = self.orig(src, src_m, tgt, tgt_m, *args, **kw)
+        self.calls.append((self.scan, (src, src_m, tgt, tgt_m), res))
+        return res
+
+
+class FusionSpy(Patch):
+    """Wraps the system's ``fusion_step``: keeps the ``rebuild`` flag of
+    every keyframe under the scan index ``scan`` that the caller sets."""
+
+    def __init__(self):
+        super().__init__(system_mod, "fusion_step")
+        self.scan, self.rebuild = -1, []
+
+    def __call__(self, *args, rebuild=False, **kw):
+        self.rebuild.append((self.scan, rebuild))
+        return self.orig(*args, rebuild=rebuild, **kw)
+
+
 def capture_inputs(frame: Frame, scan):
     """One extra step with the count-bounded and dense wrappers recording
     their inputs: the tensors each call site of the path hands the kernel."""
-    seen = {}
-
-    def recorder(name, fn):
-        def wrapped(queries, points, k=5, p_mask=None, q_mask=None):
-            seen[(name, queries.shape[0], points.shape[0])] = tuple(
-                None if x is None else x.clone() for x in (queries, points, p_mask, q_mask))
-            return fn(queries, points, k, p_mask, q_mask)
-        return wrapped
-
-    orig = K.knn_counted_cuda, K.knn_dense_cuda
-    K.knn_counted_cuda = recorder("knn_counted", orig[0])
-    K.knn_dense_cuda = recorder("knn_dense", orig[1])
-    try:
+    with Recorder("knn_counted_cuda") as counted, Recorder("knn_dense_cuda") as dense:
         frame.step(scan)
-    finally:
-        K.knn_counted_cuda, K.knn_dense_cuda = orig
     sync()
-    return seen
+    return {(name, q, p): v for name, rec in (("knn_counted", counted), ("knn_dense", dense))
+            for (q, p, _), v in rec.seen.items()}
 
 
 def library_knn(queries, points, k, p_mask, q_mask):
@@ -225,6 +319,271 @@ def compare_kernel(name, site, inputs, launches, k=5):
             "ms": ms, "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_ms, "shape": [Q, P], "valid": [nq, np_]}
+
+
+def sim_lap(cfg, n: int):
+    """The golden loop of examples/evaluate_presets.py, cut to ``n`` scans:
+    a circle at 1.3 m/s in the room world that returns to its start within
+    the run, scans cast from the sensor pose of the preset's extrinsic, the
+    IMU at 200 Hz over the whole run. Returns (scans, imu, trajectory)."""
+    radius = 1.3 * SYS_LAP_S / (2.0 * math.pi)
+    traj = circle_trajectory(radius=radius, period=SYS_LAP_S, speed_up=3.0)
+    world = make_room_world(device=DEV)
+    pattern = spinning_pattern(n_rings=SYS_RINGS, n_cols=SYS_COLS, device=DEV)
+    q_lb = np.asarray(cfg.fusion.q_lb, float)
+    q_sl = quat_conj_np(q_lb[None])[0]
+    t_sl = -quat_rotate_np(q_sl[None], np.asarray(cfg.fusion.t_lb, float)[None])[0]
+    scans = []
+    for k in range(n):
+        sc = simulate_scan(world, traj, k * 0.1, pattern, period=0.1, t_sl=t_sl, q_sl=q_sl)
+        scans.append((sc.pts.reshape(SYS_RINGS, SYS_COLS, 3),
+                      sc.valid.reshape(SYS_RINGS, SYS_COLS),
+                      sc.rel_time.reshape(SYS_RINGS, SYS_COLS)))
+    imu = simulate_imu(traj, 0.0, n * 0.1 + 0.1, rate=200.0, device=DEV)
+    return scans, imu, traj, radius
+
+
+def system_config():
+    """The ``fr_iosb_rot`` preset at full width: odometry, fusion, features,
+    IMU noise and loop closure."""
+    return load_config("fr_iosb_rot")
+
+
+def system_phase():
+    """Drive ``LiliOmSystem`` over the lap with the pruned kNN switched on.
+    Returns (system, per-scan host ms, launch counts, recorded inputs,
+    facts for the checks)."""
+    cfg = system_config()
+    lc = dataclasses.replace(cfg.loop_closure, time_thres=SYS_LAP_S / 3.0)
+    t0 = time.perf_counter()
+    scans, imu, traj, radius = sim_lap(cfg, SYS_SCANS)
+    sync()
+    print(f"[system] cuts: {SYS_SCANS} scans (a lap of {SYS_LAP_S:.1f} s, radius "
+          f"{radius:.2f} m, at 1.3 m/s); time_thres {cfg.loop_closure.time_thres} -> "
+          f"{lc.time_thres:.2f} s (the lap is shorter than 60 s); deskew_translation on "
+          f"(as the JAX golden loop runs); ICP gate as the preset (icp_trim "
+          f"{lc.icp_trim}, icp_thres {lc.icp_thres}); sim {time.perf_counter() - t0:.2f} s")
+    sys_ = LiliOmSystem(cfg.odometry, cfg.fusion, cfg.spin_features, lc, cfg.imu_noise,
+                        device=DEV)
+    sys_.deskew_translation = True
+    sys_.push_imu(imu.stamps.cpu().numpy(), imu.accs.cpu().numpy(), imu.gyrs.cpu().numpy())
+    t0w, q0w = pose_at(traj, 0.0, device=DEV)
+    fired, host_ms, lc_ms = [], [], []
+    prev = os.environ.get("LILI_OM_KNN_PRUNED")
+    os.environ["LILI_OM_KNN_PRUNED"] = "1"
+    try:
+        with (Recorder("knn_pruned_cuda", armed=False) as rec, IcpSpy() as icp,
+              FusionSpy() as fus):
+            sync()
+            K.reset_launch_counts()
+            for k, (img, valid, rel) in enumerate(scans):
+                rec.armed = k >= SYS_RECORD_FROM
+                icp.scan = fus.scan = k
+                t1 = time.perf_counter()
+                sys_.process_scan(img, valid, rel, k * 0.1)
+                sync()
+                host_ms.append(1e3 * (time.perf_counter() - t1))
+                if k % LC_EVERY == 0 and k > 0:
+                    t1 = time.perf_counter()
+                    ok = sys_.try_loop_closure()
+                    sync()
+                    lc_ms.append(1e3 * (time.perf_counter() - t1))
+                    if ok:
+                        fired.append((k, float(icp.calls[-1][2].fitness)))
+            counts = dict(K.LAUNCHES)
+    finally:
+        if prev is None:
+            os.environ.pop("LILI_OM_KNN_PRUNED", None)
+        else:
+            os.environ["LILI_OM_KNN_PRUNED"] = prev
+    # the first keyframe after each closure, its rebuild flag and its
+    # backend time (the backend stage records one sample per keyframe)
+    backend = sys_.metrics.samples["backend"]
+    rebuilds = []
+    for k, _ in fired:
+        after = [(i, s, rb) for i, (s, rb) in enumerate(fus.rebuild) if s > k]
+        if after:
+            i, s, rb = after[0]
+            rebuilds.append((s, rb, 1e3 * backend[i]))
+    # graph keyframes against the simulator (the odometry frame is the
+    # first body pose)
+    n = len(sys_.kf_stamps)
+    g_t = sys_.graph.t[:n].double()
+    gt = torch.stack([pose_relative(t0w, q0w, *pose_at(traj, s, device=DEV))[0]
+                      for s in sys_.kf_stamps])
+    kf_err = torch.linalg.norm(g_t - gt, dim=1)
+    facts = {"metrics": sys_.metrics.report(),  # throughput read at the lap's end
+             "fired": fired, "rebuilds": rebuilds, "lc_ms": lc_ms,
+             "kf_rmse": float(torch.sqrt(torch.mean(kf_err ** 2))),
+             "kf_max": float(kf_err.max()), "n_kf": n,
+             "attempts": icp_attempts(icp.calls, sys_.lc_cfg, make_room_world(device=DEV),
+                                      t0w, q0w)}
+    return sys_, host_ms, counts, rec.seen, facts, icp.calls
+
+
+def surface_distance(world: World, pts):
+    """Distance of each point (simulator frame) to the nearest surface of
+    ``world``: its bounded planes and its capped cylinders."""
+    w = World(*[x.to(pts.dtype) for x in world])
+    d = pts[:, None, :] - w.plane_center[None]
+    n = torch.sum(d * w.plane_normal, -1)
+    du = torch.clamp(torch.sum(d * w.plane_u, -1).abs() - w.plane_half[:, 0], min=0.0)
+    dv = torch.clamp(torch.sum(d * w.plane_v, -1).abs() - w.plane_half[:, 1], min=0.0)
+    to_plane = torch.sqrt(n * n + du * du + dv * dv).amin(dim=1)
+    c = pts[:, None, :] - w.cyl_base[None]
+    a = torch.sum(c * w.cyl_axis, -1)
+    dr = torch.linalg.norm(c - a[..., None] * w.cyl_axis, dim=-1) - w.cyl_radius
+    da = torch.clamp(a.abs() - w.cyl_half_len, min=0.0)
+    return torch.minimum(to_plane, torch.sqrt(dr * dr + da * da).amin(dim=1))
+
+
+def icp_attempts(calls, lc, world, t0w, q0w):
+    """Each closure attempt's ICP, read after the lap (untimed): the fitness
+    the gate read (untrimmed when ``icp_trim`` is 1), the fitness trimmed to
+    the best ``ICP_TRIM`` at the same final pose, the share of matched
+    source points farther than ``FAR_M`` from the target, and the median and
+    95th percentile distance of each submap's points to the world's
+    surfaces (odometry frame → simulator frame by the first body pose)."""
+    rows = []
+    for scan, (src, sm, tgt, tm), res in calls:
+        pw = quat_rotate(res.q[None], src) + res.t[None]
+        d2 = K.knn(pw, tgt, k=1, q_mask=sm, p_mask=tm)[0][:, 0]
+        d2 = torch.sort(d2[sm & (d2 < ICP_MAX_CORR_M ** 2)]).values
+        n_keep = max(int(d2.numel() * ICP_TRIM), 1)
+        row = {"scan": scan, "fitness": float(res.fitness),
+               "trimmed": float(d2[:n_keep].mean()),
+               "far_share": float((d2 > FAR_M ** 2).float().mean()),
+               "n_src": int(sm.sum()), "n_tgt": int(tm.sum()),
+               "t_icp": float(torch.linalg.norm(res.t)),
+               "accepted": bool(float(res.fitness) <= lc.icp_thres)}
+        for name, pts, m in (("src", src, sm), ("tgt", tgt, tm)):
+            sim = quat_rotate(q0w[None], pts[m].double()) + t0w[None]
+            dist = torch.sort(surface_distance(world, sim)).values
+            row[f"{name}_surf_p50"] = float(dist[len(dist) // 2])
+            row[f"{name}_surf_p95"] = float(dist[int(0.95 * (len(dist) - 1))])
+        rows.append(row)
+    return rows
+
+
+def check_system(sys_, host_ms, counts, facts):
+    lc = sys_.lc_cfg
+    n_icp = len(sys_.metrics.samples.get("icp", []))
+    site = lambda q, p, k: counts.get(("knn_pruned", q, p, k), 0)
+    cap = lc.submap_cap
+    timed = sorted(host_ms[N_WARM:])
+    rep = facts["metrics"]
+    print(f"[system] {len(host_ms)} scans, {facts['n_kf']} keyframes: per-scan host ms "
+          f"median {timed[len(timed) // 2]:.3f} min {timed[0]:.3f} max {timed[-1]:.3f}; "
+          f"closure attempts {len(facts['lc_ms'])} (ms {[round(x, 1) for x in facts['lc_ms']]})"
+          f"; fired (scan, fitness) {facts['fired']}; "
+          f"rejects {sys_.lc_rejects}; "
+          f"loop factors {len(sys_._loop_pairs)} {sys_._loop_pairs}")
+    print(f"[system] ICP ms per closure attempt "
+          f"{[round(1e3 * x, 1) for x in sys_.metrics.samples.get('icp', [])]}; graph_solve ms "
+          f"{[round(1e3 * x, 1) for x in sys_.metrics.samples.get('graph_solve', [])]}; "
+          f"rebuild keyframes (scan, rebuild, backend ms) {facts['rebuilds']}; backend ms "
+          f"median {rep['backend']['p50_ms']:.3f}")
+    for a in facts["attempts"]:
+        print(f"[system] ICP at scan {a['scan']}: fitness {a['fitness']:.5f} "
+              f"({'accepted' if a['accepted'] else 'rejected'}), trimmed to {ICP_TRIM} "
+              f"{a['trimmed']:.5f}; matched source points beyond {FAR_M} m "
+              f"{100 * a['far_share']:.2f} %; |t_icp| {a['t_icp']:.4f} m; points "
+              f"src {a['n_src']} tgt {a['n_tgt']}; distance to the world's surfaces "
+              f"p50/p95 src {a['src_surf_p50']:.4f}/{a['src_surf_p95']:.4f} m tgt "
+              f"{a['tgt_surf_p50']:.4f}/{a['tgt_surf_p95']:.4f} m")
+    print(f"[system] graph keyframes vs simulator: RMSE {facts['kf_rmse']:.4f} m, max "
+          f"{facts['kf_max']:.4f} m")
+    print(f"[system] launches {sum(counts.values())} "
+          f"{ {f'{w}:{q}x{p}:k{k}': c for (w, q, p, k), c in sorted(counts.items())} }")
+    print("[system] stage metrics (a sync ends every stage):\n" + sys_.metrics.pretty())
+    check(len(facts["fired"]) >= 1, f"system: no loop closure fired ({sys_.lc_rejects})")
+    check(n_icp >= 1 and len(sys_.metrics.samples.get("graph_solve", [])) >= 1,
+          "system: ICP or the graph solve did not run")
+    check(len(sys_._loop_pairs) >= 1 and int(sys_.graph.n_loops) >= 1,
+          "system: no loop factor in the graph")
+    check(any(rb for _, rb, _ in facts["rebuilds"]),
+          f"system: no keyframe after a closure ran with rebuild=True {facts['rebuilds']}")
+    check(site(cap, cap, 5) >= lc.icp_iters * n_icp and site(cap, cap, 1) >= n_icp,
+          f"system: ICP launches {site(cap, cap, 5)} (k=5) / {site(cap, cap, 1)} (k=1) for "
+          f"{n_icp} ICP runs of {lc.icp_iters} iterations")
+    odo, fus = sys_.odo_cfg, sys_.fusion_cfg
+    W = fus.window
+    check(site(odo.query_cap, odo.map_cap, odo.k) >= len(host_ms),
+          "system: the odometry site did not launch B3 on every scan")
+    check(site(W * fus.kf_surf_cap, fus.map_surf_cap, fus.k) >= 1
+          and site(W * fus.kf_edge_cap, fus.map_edge_cap, fus.k) >= 1,
+          "system: a fusion site did not launch B3")
+    check(K.launch_count("knn_counted") == 0 and K.launch_count("knn_dense") == 0,
+          "system: B1/B2 launched under LILI_OM_KNN_PRUNED=1")
+    for t in sys_.trajectory:
+        check(bool(np.all(np.isfinite(t))), "system: a pose is not finite")
+    check(facts["kf_rmse"] < KF_RMSE_TOL_M,
+          f"system: keyframe RMSE {facts['kf_rmse']:.4f} m against the simulator")
+    for a in facts["attempts"]:
+        check(max(a["src_surf_p50"], a["tgt_surf_p50"]) < SUBMAP_SURF_TOL_M,
+              f"system: the submaps of the attempt at scan {a['scan']} lie off the world's "
+              f"surfaces (median {a['src_surf_p50']:.3f} / {a['tgt_surf_p50']:.3f} m)")
+
+
+def compare_pruned(site, inputs, k, launches):
+    """B3 against the plain version and against B1 on the same inputs (all
+    equal bit for bit); the share of (block, tile) pairs it skipped; its
+    times beside B1's, the plain version's, cdist+topk and the bound."""
+    q, p, pm, qm = inputs
+    d_k, i_k = K.knn_pruned_cuda(q, p, k, pm, qm)
+    d_p, i_p = K.knn(q, p, k=k, q_mask=qm, p_mask=pm)
+    d_1, i_1 = K.knn_counted_cuda(q, p, k, pm, qm)
+    sync()
+    fin = torch.isfinite(d_p)
+    err = float((d_k[fin] - d_p[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(bool(torch.equal(d_k, d_p)) and bool(torch.equal(i_k, i_p)),
+          f"B3 {site}: differs from the plain version (max {err:.3e}, "
+          f"{int((i_k != i_p).sum())} indices)")
+    check(bool(torch.equal(d_k, d_1)) and bool(torch.equal(i_k, i_1)),
+          f"B3 {site}: differs from B1")
+    prep = K.pruned_kernel_inputs(q, p, k, pm, qm)
+    _, _, visited = K.launch_pruned_kernel(prep, k)
+    possible = int(prep.q_any.sum()) * int(prep.p_any.sum())
+    skipped = 1.0 - int(visited.sum()) / possible if possible else 0.0
+    pairs = scanned_pairs(prep, visited)
+    ms = cuda_ms(lambda: K.knn_pruned_cuda(q, p, k, pm, qm), 20)
+    kernel_ms = cuda_ms(lambda: K.launch_pruned_kernel(prep, k), 20)
+    b1_ms = cuda_ms(lambda: K.knn_counted_cuda(q, p, k, pm, qm), 20)
+    plain_ms = cuda_ms(lambda: K.knn(q, p, k=k, q_mask=qm, p_mask=pm), 5)
+    lib_ms = cuda_ms(lambda: library_knn(q, p, k, pm, qm), 5)
+    Q, P = q.shape[0], p.shape[0]
+    nq = Q if qm is None else int(qm.sum())
+    np_ = P if pm is None else int(pm.sum())
+    # the walk ends early, so the bound counts the pairs this run's data
+    # needed: those of the tiles the kernel scanned
+    t_ops = FLOP_PER_PAIR * pairs / PEAK_F32_FLOPS
+    t_bytes = (12 * Q + 12 * P + (0 if qm is None else Q) + (0 if pm is None else P)
+               + Q * k * (4 + 8)) / PEAK_BYTES
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    print(f"[kernel] B3 {site}: valid q {nq}/{Q} p {np_}/{P}; skipped {100 * skipped:.1f} % "
+          f"of (block, tile) pairs; (valid query, valid point) pairs scanned {pairs} of "
+          f"{nq * np_}; wrapper {ms:.4f} ms kernel {kernel_ms:.4f} ms; B1 "
+          f"{b1_ms:.4f} ms; plain {plain_ms:.4f} ms; cdist+topk {lib_ms:.4f} ms; bound "
+          f"{bound_ms:.5f} ms; launches in the system phase {launches}")
+    return {"name": f"knn_pruned[{site}]", "route": "cuda", "source": SOURCE_PRUNED,
+            "replaces": REPLACES["knn_pruned"], "launches": launches, "max_abs_err": err,
+            "ms": ms, "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib_ms, "b1_ms": b1_ms, "skipped_share": skipped,
+            "pairs_scanned": pairs, "shape": [Q, P], "valid": [nq, np_]}
+
+
+def scanned_pairs(prep, visited) -> int:
+    """(valid query, valid map point) pairs the pruned kernel compared: block
+    b scanned the first ``visited[b]`` tiles of its order."""
+    ni, nj = prep.order.shape
+    q_ok = torch.zeros((ni * K.PRUNED_BLOCK,), dtype=torch.int64, device=prep.qs.device)
+    q_ok[:prep.q_ok.shape[0]] = prep.q_ok.to(torch.int64)
+    nq_block = q_ok.reshape(ni, K.PRUNED_BLOCK).sum(dim=1)
+    np_tile = (prep.pts4[:, 3] == 0.0).reshape(nj, K.PRUNED_TILE).sum(dim=1)
+    scanned = torch.arange(nj, device=visited.device)[None, :] < visited[:, None].long()
+    per_block = torch.where(scanned, np_tile[prep.order.long()], 0).sum(dim=1)
+    return int((nq_block * per_block).sum())
 
 
 def profile_frames(frame: Frame, scans, wall_ms: float):
@@ -306,7 +665,7 @@ def main(argv=None) -> int:
     main_counts = counts
     check(K.launch_count("knn_counted") >= 3 * n,
           f"main path: {K.launch_count('knn_counted')} kNN launches for {n} scans")
-    for (w, q, p), c in counts.items():
+    for (w, q, p, _), c in counts.items():
         check(c >= n, f"main path: call site {w}:{q}x{p} launched {c} times for {n} scans")
     for t, q, ft, *_ in poses:
         check(bool(torch.isfinite(t).all() and torch.isfinite(q).all()
@@ -340,7 +699,7 @@ def main(argv=None) -> int:
     for key, inputs in list(main_inputs.items()) + list(big_inputs.items()):
         w, q, p = key
         site = f"{sites[w].get(q, 'site')}_{q}x{p}"
-        launches = (main_counts if w == "knn_counted" else big_counts).get(key, 0)
+        launches = (main_counts if w == "knn_counted" else big_counts).get(key + (5,), 0)
         kernels.append(compare_kernel(w, site, inputs, launches))
     check({k["name"].split("[")[0] for k in kernels} == {"knn_counted", "knn_dense"},
           "a kernel had no call site to compare")
@@ -353,7 +712,35 @@ def main(argv=None) -> int:
     unmasked = compare_kernel("knn_dense", f"unmasked_4096x{LARGE_MAP}",
                               (qs.contiguous(), pts, None, None), 0)
 
-    # 6. profile
+    # 6. system phase, then B3 at each of its call sites
+    sys_, sys_ms, sys_counts, sys_inputs, facts, icp_calls = system_phase()
+    check_system(sys_, sys_ms, sys_counts, facts)
+    if args.out:
+        # every closure attempt's submaps and ICP result, for a replay
+        # through the JAX reference (python3 -m tools.replay_icp)
+        stack = lambda j: np.stack([c[1][j].cpu().numpy() for c in icp_calls])
+        np.savez_compressed(
+            os.path.join(args.out, "icp_attempts.npz"),
+            scan=np.array([c[0] for c in icp_calls]), src=stack(0), src_mask=stack(1),
+            tgt=stack(2), tgt_mask=stack(3), n_iters=sys_.lc_cfg.icp_iters,
+            trim=sys_.lc_cfg.icp_trim,
+            t=np.stack([c[2].t.cpu().numpy() for c in icp_calls]),
+            q=np.stack([c[2].q.cpu().numpy() for c in icp_calls]),
+            fitness=np.array([float(c[2].fitness) for c in icp_calls]))
+    cap = sys_.lc_cfg.submap_cap
+    odo, fus = sys_.odo_cfg, sys_.fusion_cfg
+    names = {(cap, cap): "icp", (odo.query_cap, odo.map_cap): "odometry",
+             (fus.window * fus.kf_surf_cap, fus.map_surf_cap): "fusion_surf",
+             (fus.window * fus.kf_edge_cap, fus.map_edge_cap): "fusion_edge"}
+    for (q, p, k), inputs in sorted(sys_inputs.items()):
+        site = f"{names.get((q, p), 'site')}_k{k}_{q}x{p}"
+        kernels.append(compare_pruned(site, inputs, k,
+                                      sys_counts.get(("knn_pruned", q, p, k), 0)))
+    check({n.split("[")[1].split("_k")[0] for n in (x["name"] for x in kernels)
+           if n.startswith("knn_pruned")} >= {"icp", "odometry", "fusion_surf", "fusion_edge"},
+          "B3: a call site was not recorded")
+
+    # 7. profile
     if args.profile:
         timed = sorted(host_ms[N_WARM:])
         profile_frames(frame, scans[N_WARM:N_WARM + 5], timed[len(timed) // 2])
@@ -362,6 +749,8 @@ def main(argv=None) -> int:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"device": name, "nvidia_smi": smi, "per_scan_host_ms": host_ms,
                        "per_scan_host_ms_plain_knn": host_plain,
+                       "system": {"per_scan_host_ms": sys_ms, "lc_rejects": sys_.lc_rejects,
+                                  **facts},
                        "kernels": kernels + [unmasked]}, f, indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

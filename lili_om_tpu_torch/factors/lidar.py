@@ -11,7 +11,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.math import _cross, hat, quat_conj, quat_rotate, quat_to_rotmat
+from ..utils.math import (_cross, hat, quat_conj, quat_mul, quat_normalize, quat_rotate,
+                          quat_to_rotmat)
 
 
 def huber_weight(r2: torch.Tensor, delta: float) -> torch.Tensor:
@@ -82,3 +83,17 @@ def edge_residual(t: torch.Tensor, q: torch.Tensor, batch: EdgeFactorBatch):
     r = torch.where(m, r, 0.0)
     J = torch.where(m[:, None], torch.cat([Jt, Jth], dim=-1), 0.0)
     return r, J
+
+
+def relative_pose_residual(t1, q1, t2, q2, dt, dq, weight=1.0):
+    """6-dof relative-pose residual (the global and local pose graphs'
+    between-factor):
+
+    r = w·[ q₁⁻¹(p₂−p₁) − δp ; 2·vec(δq⁻¹ ⊗ q₁⁻¹ ⊗ q₂) ]
+
+    translation first, as the tangent. Returns r (6,); callers take its
+    Jacobians by forward-mode autodiff."""
+    qi = quat_conj(q1)
+    r_t = quat_rotate(qi, t2 - t1) - dt
+    r_q = 2.0 * quat_normalize(quat_mul(quat_conj(dq), quat_mul(qi, q2)))[..., 1:]
+    return weight * torch.cat([r_t, r_q], dim=-1)

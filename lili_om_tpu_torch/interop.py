@@ -2,7 +2,8 @@
 
 The system has no learned weights: its parameters are the carried states.
 The dicts are keyed by the field names of the JAX package's NamedTuples
-(``OdometryState``, ``FusionState``); nested tuples (``preints``, ``prior``)
+(``OdometryState``, ``FusionState``, ``PoseGraph``), so a JAX state or graph
+can be carried into the port and back; nested tuples (``preints``, ``prior``)
 flatten to dotted keys such as ``"prior.J"``. Float arrays take the
 requested dtype, integer arrays become int32 and boolean arrays stay
 boolean, as in the states of both packages.
@@ -16,6 +17,7 @@ from .device import resolve_device
 from .factors.prior import MarginalPrior
 from .models.fusion import FusionState
 from .models.odometry import OdometryState
+from .models.pose_graph import PoseGraph
 from .ops.preintegration import Preint
 
 _NESTED = {"preints": Preint, "prior": MarginalPrior}
@@ -66,3 +68,11 @@ def fusion_state_to_numpy(state: FusionState) -> dict:
 
 def fusion_state_from_numpy(d: dict, dtype=torch.float32, device=None) -> FusionState:
     return _from_numpy(FusionState, d, dtype, resolve_device(device))
+
+
+def pose_graph_to_numpy(graph: PoseGraph) -> dict:
+    return _to_numpy(graph)
+
+
+def pose_graph_from_numpy(d: dict, dtype=torch.float32, device=None) -> PoseGraph:
+    return _from_numpy(PoseGraph, d, dtype, resolve_device(device))

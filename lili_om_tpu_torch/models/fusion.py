@@ -1,6 +1,6 @@
 """Backend sliding-window LiDAR-inertial fusion (port of
-``lili_om_tpu/models/fusion.py``, the path ``bench.py`` runs: incremental
-map tables, no loop-closure rebuild).
+``lili_om_tpu/models/fusion.py``: incremental map tables, rebuilt from the
+keyframe ring after a loop closure).
 
 Per keyframe: IMU propagation + preintegration; window shift; the keyframe
 inserted into the ring buffer; match maps and updated mature tables from one
@@ -18,9 +18,8 @@ problem anchor at the post-solve values.
 
 The ``gn_tol`` early exit is a host loop (one device sync per iteration to
 read the step norm), stopping exactly where the JAX ``while_loop`` stops.
-The loop-closure and sharded-path hooks (``match_fn``, ``rebuild=True``,
-``incremental_map=False``) belong to later slices and raise
-``NotImplementedError``.
+The sharded-path hooks (``match_fn``, ``incremental_map=False``) belong to
+a later slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -246,11 +245,30 @@ def _edge_query_world(ts, qs, win_edge_b, cfg: FusionConfig):
     return quat_rotate(qs[:, None, :], eb) + ts[:, None, :]
 
 
-def _incremental_maps(state: FusionState, cfg: FusionConfig):
+def _rebuilt_tables(state: FusionState, clouds, masks, refl, leaf, Tcap, prevwin, M):
+    """The ``rebuild`` merge: every ring keyframe at its current ring pose.
+    The match map is the whole ring; the table is the next step's mature
+    set, every slot but the post-insert window {wi−W+1..wi}."""
+    dev = state.t.device
+    pts = (quat_rotate(state.hist_q[:, None, :], clouds)
+           + state.hist_t[:, None, :]).reshape(-1, 3)
+    msk = (masks & state.hist_valid[:, None]).reshape(-1)
+    nextwin = (prevwin + 1) % M
+    in_next = torch.any(torch.arange(masks.shape[0], device=dev)[:, None]
+                        == nextwin[None, :], dim=1)
+    sel_table = (~in_next)[:, None].expand(masks.shape).reshape(-1)
+    sums = pts if refl is None else torch.cat([pts, refl.reshape(-1, 1)], dim=1)
+    return merge_voxel_entries(torch.floor(pts / leaf).to(torch.int32),
+                               sums * msk[:, None].to(pts.dtype), msk.to(pts.dtype), msk,
+                               Tcap, second_sel=sel_table)
+
+
+def _incremental_maps(state: FusionState, cfg: FusionConfig, rebuild: bool = False):
     """Match maps + updated mature tables from one merge per feature kind,
     on the pre-insert state: match map = table ∪ the W previous-window
     keyframes at their ring poses; table' = table + slot (wi−W) − the old
-    content of slot wi."""
+    content of slot wi. ``rebuild``: both from the whole ring instead (a
+    loop closure moved the mature poses, see :func:`_rebuilt_tables`)."""
     M, W = cfg.local_map_width, cfg.window
     dtype, dev = state.t.dtype, state.t.device
     wi = state.write_idx.long()
@@ -264,6 +282,9 @@ def _incremental_maps(state: FusionState, cfg: FusionConfig):
 
     def build(clouds, masks, refl, table, leaf, Tcap, map_cap):
         clouds = body_points(clouds, t_lb, q_lb)
+        if rebuild:
+            return finish(*_rebuilt_tables(state, clouds, masks, refl, leaf, Tcap, prevwin,
+                                           M), refl, map_cap)
         S1 = clouds.shape[1]
         K = W * S1
         live = world(prevwin, clouds).reshape(K, 3)
@@ -286,8 +307,12 @@ def _incremental_maps(state: FusionState, cfg: FusionConfig):
         live_rows = torch.arange(K, device=dev) < S1  # prevwin[0]: the maturing slot
         sel_match = torch.cat([ones(Tcap), ones(K), zeros(S1)])
         sel_table = torch.cat([ones(Tcap), live_rows, ones(S1)])
-        (mc, ms, mn, mv), (tc, tsum, tn, tv) = merge_voxel_entries(
-            cells, sums, cnt, valid, Tcap, primary_sel=sel_match, second_sel=sel_table)
+        return finish(*merge_voxel_entries(cells, sums, cnt, valid, Tcap,
+                                           primary_sel=sel_match, second_sel=sel_table),
+                      refl, map_cap)
+
+    def finish(match, table, refl, map_cap):
+        (mc, ms, mn, mv), (tc, tsum, tn, tv) = match, table
         den = torch.clamp(mn, min=1.0)[:, None]
         map_pts = (ms[:, :3] / den)[:map_cap].to(dtype)
         map_mask = mv[:map_cap]
@@ -415,14 +440,14 @@ def _set_row(x: torch.Tensor, i: torch.Tensor, value) -> torch.Tensor:
 
 def _ingest(state: FusionState, surf_pts, surf_mask, surf_refl, edge_pts, edge_mask,
             imu_dts, imu_accs, imu_gyrs, imu_valid, cfg: FusionConfig,
-            noise: ImuNoise) -> FusionMid:
+            noise: ImuNoise, rebuild: bool = False) -> FusionMid:
     """IMU propagate/preintegrate, window shift, ring insert, window gather."""
     W, M = cfg.window, cfg.local_map_width
     dtype, dev = state.t.dtype, state.t.device
     t_lb, q_lb = _extrinsic(cfg, dtype, dev)
 
     (map_surf, map_refl, map_surf_mask, map_edge, map_edge_mask,
-     enough_map, surf_table, edge_table) = _incremental_maps(state, cfg)
+     enough_map, surf_table, edge_table) = _incremental_maps(state, cfg, rebuild)
 
     accs = clamp_accel(imu_accs)
     t_new, q_new, v_new, acc0, gyr0 = propagate_world_parallel(
@@ -611,17 +636,18 @@ def fusion_step(state: FusionState, surf_pts, surf_mask, surf_refl, edge_pts, ed
                 cfg: FusionConfig = FusionConfig(), noise: ImuNoise = ImuNoise(),
                 warmup: bool = False, match_fn=None, rebuild: bool = False, device=None):
     """Ingest one keyframe (see the module docstring). ``warmup``: the
-    window is not full yet — no correspondence search and no solve. Runs on
+    window is not full yet — no correspondence search and no solve.
+    ``rebuild``: rebuild the mature map tables from the whole ring (the
+    first keyframe after a loop closure moved the ring poses). Runs on
     ``device`` (None = the CUDA device). Returns (new_state, FusionOut)."""
-    if match_fn is not None or rebuild or not cfg.incremental_map:
+    if match_fn is not None or not cfg.incremental_map:
         raise NotImplementedError(
-            "match_fn, rebuild=True and incremental_map=False (the loop-closure "
-            "and sharded paths) are not ported yet")
+            "match_fn and incremental_map=False (the sharded path) are not ported yet")
     dev = resolve_device(device)
     args = [a.to(dev) for a in (surf_pts, surf_mask, surf_refl, edge_pts, edge_mask,
                                 imu_dts, imu_accs, imu_gyrs, imu_valid)]
     dtype = state.t.dtype
-    mid = _ingest(state, *args, cfg, noise)
+    mid = _ingest(state, *args, cfg, noise, rebuild)
     if warmup:
         surf_batches, edge_batches = _zero_batches(mid, dtype)
     else:

@@ -1,5 +1,6 @@
 """Fixed-shape voxel-grid downsampling (port of ``lili_om_tpu/ops/voxel.py``,
-the functions on the per-scan path).
+the functions on the per-scan path, and the host-side exact downsample of
+the loop-closure submaps).
 
 Centroid per voxel, computed as one sort by a scrambled voxel key plus one
 segment sum, with a static output capacity and a validity mask. Keys pack
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 _BITS = 10  # cells per axis = 1024
@@ -242,3 +244,20 @@ def pad_cloud(pts: torch.Tensor, mask: torch.Tensor, cap: int):
     pad = cap - n
     return (torch.cat([pts, pts.new_zeros((pad, 3))]),
             torch.cat([mask, mask.new_zeros((pad,))]))
+
+
+def voxel_downsample_np(pts, leaf: float):
+    """Host-side exact voxel-centroid downsample (numpy, unbounded extent),
+    for clouds whose span exceeds the 1024-cell axis budget of the device
+    keys (loop-closure submaps). int64 keys give 2²¹ cells per axis;
+    ``np.unique`` groups them, so centroids come out in key order."""
+    pts = np.asarray(pts)
+    if len(pts) == 0:
+        return pts.reshape(0, 3)
+    cells = np.floor(pts / leaf).astype(np.int64)
+    cells -= cells.min(axis=0)
+    key = (cells[:, 0] << 42) | (cells[:, 1] << 21) | cells[:, 2]
+    uniq, inv, cnt = np.unique(key, return_inverse=True, return_counts=True)
+    sums = np.zeros((len(uniq), 3), pts.dtype)
+    np.add.at(sums, inv, pts)
+    return sums / cnt[:, None]

@@ -8,10 +8,12 @@ Conventions are those of the JAX package:
   ``q ⊞ δθ = q ⊗ Exp(δθ)``.
 
 All functions are plain tensor code, batched over leading dimensions, and
-follow the dtype and device of their inputs.
+follow the dtype and device of their inputs; the ``*_np`` twins at the end
+are numpy, for the system's host paths (loop-closure correction, submaps).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -258,3 +260,36 @@ def solve_psd(A: torch.Tensor, b: torch.Tensor, damping: float = 0.0) -> torch.T
     y = torch.linalg.solve_triangular(L, rhs, upper=False)
     x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
     return x[..., 0] if vec else x
+
+
+# ---------------------------------------------------------------------------
+# numpy twins for the system's host paths
+# ---------------------------------------------------------------------------
+
+
+def quat_mul_np(q1, q2):
+    """Batched Hamilton product, numpy, (...,4) wxyz."""
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return np.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], axis=-1)
+
+
+def quat_conj_np(q):
+    return q * np.array([1.0, -1.0, -1.0, -1.0], q.dtype)
+
+
+def quat_normalize_np(q):
+    return q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
+
+
+def quat_rotate_np(q, v):
+    """Rotate (...,3) vectors by (...,4) quats, numpy."""
+    w = q[..., :1]
+    u = q[..., 1:]
+    t = 2.0 * np.cross(u, v)
+    return v + w * t + np.cross(u, t)

@@ -6,6 +6,7 @@ import pytest
 
 from lili_om_tpu.models import fusion as JFu
 from lili_om_tpu.models import odometry as JO
+from lili_om_tpu.models import system as JSy
 from lili_om_tpu.ops import features_spin as JS
 from lili_om_tpu.ops import preintegration as JP
 from lili_om_tpu.utils import config as JC
@@ -43,8 +44,22 @@ def test_fr_iosb_rot_scalars():
     j, t = JC.load_config("fr_iosb_rot"), TC.load_config("fr_iosb_rot")
     for f in dataclasses.fields(t):
         v = getattr(t, f.name)
-        if not hasattr(v, "_fields"):
+        if not hasattr(v, "_fields") and not dataclasses.is_dataclass(v):
             assert v == getattr(j, f.name), f.name
+
+
+def test_loop_closure_config_fields_and_defaults():
+    j, t = JSy.LoopClosureConfig, TC.LoopClosureConfig
+    assert [f.name for f in dataclasses.fields(j)] == [f.name for f in dataclasses.fields(t)]
+    assert dataclasses.asdict(j()) == dataclasses.asdict(t())
+
+
+def test_fr_iosb_rot_loop_closure_section():
+    j = JC.load_config("fr_iosb_rot").loop_closure
+    t = TC.load_config("fr_iosb_rot").loop_closure
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert (t.submap_cap, t.submap_leaf, t.map_width, t.latest_width, t.icp_iters) == \
+        (16384, 0.4, 25, 6, 100)
 
 
 def test_bench_configs_match_bench_py():

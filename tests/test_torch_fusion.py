@@ -59,18 +59,22 @@ def _args(d, lib, dtype):
             f(d["edge_mask"]), f(d["dts"]), f(d["accs"]), f(d["gyrs"]), f(d["vm"]))
 
 
-def _run(inputs, dtype, carry):
+def _run(inputs, dtype, carry, rebuild_at=None):
+    """Both fusion steps over the scans; scan ``rebuild_at`` runs with
+    ``rebuild=True`` (the first keyframe after a loop closure)."""
     (_, _, jf, jn), (_, _, tf, tn) = small_configs()
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     js = JFu.init_fusion_state(jf, jn, dtype=jdt)
     ts = TFu.init_fusion_state(tf, tn, dtype=tdt, device=CPU)
     outs = []
-    for d in inputs:
+    for i, d in enumerate(inputs):
         if carry:
             ts = interop.fusion_state_from_numpy(tree_dict(js), dtype=tdt, device=CPU)
         warm = int(js.kf_count) + 1 < jf.window
-        js, jo = JFu.fusion_step(js, *_args(d, jnp, jdt), jf, jn, warmup=warm)
-        ts, to = TFu.fusion_step(ts, *_args(d, torch, tdt), tf, tn, warmup=warm, device=CPU)
+        rb = i == rebuild_at
+        js, jo = JFu.fusion_step(js, *_args(d, jnp, jdt), jf, jn, warmup=warm, rebuild=rb)
+        ts, to = TFu.fusion_step(ts, *_args(d, torch, tdt), tf, tn, warmup=warm, rebuild=rb,
+                                 device=CPU)
         outs.append((warm, tree_dict(jo), tree_dict(to)))
     return outs, state_dict(js), state_dict(ts)
 
@@ -101,9 +105,30 @@ def test_clamp_accel():
                                   np.asarray(JFu.clamp_accel(jnp.asarray(a))))
 
 
-@pytest.mark.parametrize("kw", [{"rebuild": True}, {"match_fn": lambda *a: None}])
+def test_fusion_step_rebuild_matches_jax(inputs):
+    """``rebuild=True`` on a carried state (the first keyframe after a
+    loop closure): the match maps and the mature tables come from the whole
+    ring. The JAX state is carried in before each step, so the tolerances
+    are those of the carried run above."""
+    outs, jstate, tstate = _run(inputs, "float64", True, rebuild_at=N_SCANS - 1)
+    assert not outs[-1][0] and int(outs[-1][1]["n_surf_corr"]) > 50
+    for i, (_, jo, to) in enumerate(outs):
+        assert_close_dicts(jo, to, rtol=1e-6, atol=1e-6, what=f"scan {i}")
+    for k in ("prior.JtJ", "prior.Jtr0"):
+        a, b = jstate.pop(k), tstate.pop(k)
+        np.testing.assert_allclose(b, a, rtol=0.0, atol=PRIOR_TOL[True] * np.abs(a).max(),
+                                   err_msg=k)
+    assert_close_dicts(jstate, tstate, rtol=1e-6, atol=1e-6, what="final state")
+    assert int(tstate["msurf_valid"].sum()) > 0  # the rebuilt table holds the mature ring
+
+
+@pytest.mark.parametrize("kw", [{"match_fn": lambda *a: None},
+                                {"cfg": {"incremental_map": False}}])
 def test_unported_paths_raise(inputs, kw):
+    """The sharded path's hooks (a later slice) raise."""
     _, (_, _, tf, tn) = small_configs()
+    kw = dict(kw)
+    tf = tf._replace(**kw.pop("cfg", {}))
     ts = TFu.init_fusion_state(tf, tn, dtype=torch.float64, device=CPU)
     with pytest.raises(NotImplementedError):
         TFu.fusion_step(ts, *_args(inputs[0], torch, torch.float64), tf, tn, device=CPU, **kw)

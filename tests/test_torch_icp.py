@@ -1,0 +1,84 @@
+"""ops/icp: ``icp_point_to_plane`` against the JAX one in float64, on the
+structured clouds of tests/test_pose_graph.py, with the trimmed and the
+untrimmed (PCL) fitness.
+
+Tolerance 1e-9: both sides run the same fixed-iteration point-to-plane GN on
+the same exact 5-NN sets (the float64 distances differ in the last bits —
+the JAX kNN expands ‖q‖²+‖p‖²−2q·p around the map centroid — but no two
+candidates of these clouds lie that close), so the transforms and scores
+differ by rounding only.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lili_om_tpu.ops.icp import icp_point_to_plane as jicp
+from lili_om_tpu.utils.math import pose_inverse, quat_normalize, quat_rotate
+from lili_om_tpu_torch.ops.icp import icp_point_to_plane as ticp
+from test_torch_common import npy, tt
+
+TOL = 1e-9
+
+
+def _cloud(seed, n=600):
+    """Three orthogonal planes of a box corner, uniformly sampled."""
+    a = np.random.default_rng(seed).uniform(-5.0, 5.0, (n // 3, 2))
+    z = np.zeros(n // 3)
+    return np.concatenate([np.stack([a[:, 0], a[:, 1], z], 1),
+                           np.stack([a[:, 0], z - 5.0, a[:, 1] + 5.0], 1),
+                           np.stack([z + 5.0, a[:, 0], a[:, 1] + 5.0], 1)])
+
+
+def _both(src, smask, tgt, tmask, **kw):
+    ident = (np.zeros(3), np.array([1.0, 0, 0, 0]))
+    j = jicp(jnp.asarray(src), jnp.asarray(smask), jnp.asarray(tgt), jnp.asarray(tmask),
+             *[jnp.asarray(a) for a in ident], **kw)
+    t = ticp(tt(src), tt(smask), tt(tgt), tt(tmask), *[tt(a) for a in ident], **kw)
+    return j, t
+
+
+def _assert_same(j, t):
+    for f in ("t", "q", "fitness"):
+        np.testing.assert_allclose(npy(getattr(t, f)), np.asarray(getattr(j, f)),
+                                   rtol=TOL, atol=TOL, err_msg=f)
+    assert int(t.n_matched) == int(j.n_matched)
+    assert t.n_matched.dtype == torch.int32
+
+
+@pytest.mark.parametrize("trim", [0.7, 1.0])
+def test_recovers_transform_like_jax(trim):
+    pts = _cloud(0)
+    t_true = jnp.array([0.4, -0.3, 0.2])
+    q_true = quat_normalize(jnp.array([1.0, 0.02, -0.015, 0.03]))
+    ti, qi = pose_inverse(t_true, q_true)
+    src = np.asarray(quat_rotate(jnp.broadcast_to(qi, (len(pts), 4)), jnp.asarray(pts)) + ti)
+    # padding rows in both clouds, as the system's fixed-capacity submaps have
+    src = np.concatenate([src, np.zeros((40, 3))])
+    tgt = np.concatenate([pts, np.full((24, 3), 3.0)])
+    smask = np.arange(len(src)) < len(pts)
+    tmask = np.arange(len(tgt)) < len(pts)
+    j, t = _both(src, smask, tgt, tmask, n_iters=15, trim=trim)
+    _assert_same(j, t)
+    np.testing.assert_allclose(npy(t.t), np.asarray(t_true), atol=2e-2)
+    assert float(t.fitness) < 1e-3 and int(t.n_matched) == len(pts)
+
+
+@pytest.mark.parametrize("trim", [0.7, 1.0])
+def test_partial_overlap_fitness_like_jax(trim):
+    """A disjoint 'shadow' cluster in the source: the untrimmed score is
+    dominated by it, the trimmed one is not (n_iters=0: scoring only)."""
+    pts = _cloud(2)
+    src = np.concatenate([pts, pts[:len(pts) // 3] + np.array([0.0, 8.0, 3.0])])
+    j, t = _both(src, np.ones(len(src), bool), pts, np.ones(len(pts), bool), n_iters=0,
+                 trim=trim)
+    _assert_same(j, t)
+    assert (float(t.fitness) > 1.0) if trim == 1.0 else (float(t.fitness) < 0.05)
+
+
+def test_no_match_gives_inf_fitness():
+    pts = _cloud(1)
+    j, t = _both(pts, np.ones(len(pts), bool), pts + 100.0, np.ones(len(pts), bool),
+                 n_iters=2)
+    assert np.isinf(float(j.fitness)) and torch.isinf(t.fitness) and int(t.n_matched) == 0
+    np.testing.assert_allclose(npy(t.t), np.asarray(j.t), atol=TOL)

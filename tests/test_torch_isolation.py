@@ -62,6 +62,8 @@ def _entry_points():
     from lili_om_tpu_torch.frame import Frame, bench_configs, sim_scans
     from lili_om_tpu_torch.models.fusion import fusion_step, init_fusion_state
     from lili_om_tpu_torch.models.odometry import init_state, odometry_step
+    from lili_om_tpu_torch.models.pose_graph import init_graph
+    from lili_om_tpu_torch.models.system import LiliOmSystem
     from lili_om_tpu_torch.ops.features_spin import extract_features_spin
 
     feats, odo, fus, noise = bench_configs()
@@ -79,6 +81,8 @@ def _entry_points():
             z((4, 60, 3)), z((4, 60), dtype=torch.bool), z((4, 60)), feats),
         "Frame": lambda: Frame(),
         "sim_scans": lambda: sim_scans(1, rings=4, cols=60),
+        "LiliOmSystem": lambda: LiliOmSystem(),
+        "init_graph": lambda: init_graph(8),
     }
 
 

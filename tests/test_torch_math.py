@@ -90,3 +90,15 @@ def test_solve_psd_matches_jax():
 def test_quat_identity():
     q = TM.quat_identity((2, 3), dtype=torch.float64)
     np.testing.assert_array_equal(npy(q), np.asarray(JM.quat_identity((2, 3))))
+
+
+@pytest.mark.parametrize("name", ["quat_mul_np", "quat_conj_np", "quat_normalize_np",
+                                  "quat_rotate_np"])
+def test_numpy_twins_match_jax(name):
+    """The numpy helpers of the system's host paths: the same numpy code on
+    both sides, equal to the last bit."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    q1, q2, v = rng.normal(size=(N, 4)), _unit_quats(rng), rng.normal(size=(N, 3))
+    args = {"quat_mul_np": (q1, q2), "quat_conj_np": (q1,), "quat_normalize_np": (q1,),
+            "quat_rotate_np": (q2, v)}[name]
+    np.testing.assert_array_equal(getattr(TM, name)(*args), getattr(JM, name)(*args))

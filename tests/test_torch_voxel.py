@@ -139,3 +139,15 @@ def test_pad_cloud(n):
     for a, b in zip(JV.pad_cloud(jnp.asarray(pts), jnp.asarray(mask), 1024),
                     TV.pad_cloud(torch.as_tensor(pts), torch.as_tensor(mask), 1024)):
         _same(a, b, "float64", exact=True)
+
+
+def test_voxel_downsample_np_matches_jax(scan):
+    """The host-side exact downsample of the loop-closure submaps: numpy on
+    both sides, the same voxels in the same (key) order, equal to the last
+    bit; over a span wider than the device keys' 1024 cells per axis."""
+    pts = scan["img"].reshape(-1, 3)[scan["valid"].reshape(-1)].astype(np.float64)
+    pts = np.concatenate([pts, pts + np.array([900.0, -700.0, 30.0])])
+    a, b = JV.voxel_downsample_np(pts, 0.4), TV.voxel_downsample_np(pts, 0.4)
+    assert b.shape == a.shape and len(b) < len(pts)
+    np.testing.assert_array_equal(b, a)
+    assert TV.voxel_downsample_np(pts[:0], 0.4).shape == (0, 3)
