@@ -10,10 +10,11 @@ Phases, each printing its own line; any failed check exits non-zero:
    (one ``nvcc`` per source, all started together);
 3. main path: ``Frame`` steps (spin features → scan-to-map odometry →
    sliding-window fusion) at the full ``fr_iosb_rot`` width on simulated
-   64×1800 scans, with the kNN launch counts set to 0 just before and read
-   just after; poses are held against the simulator's trajectory, then the
-   same scans run again with the plain kNN forced and the two trajectories
-   are held together;
+   64×1800 scans, with every kernel's launch count set to 0 just before and
+   read just after (the kNN B1 and the segment sum B4 of every voxel
+   downsample and map-table merge); poses are held against the simulator's
+   trajectory, then the same scans run again under ``plain_kernels()``,
+   which launches no kernel, and the two trajectories are held together;
 4. large-map path: odometry with a 98304-point map (above the
    count-bounded kernel's 65536-row limit), which takes the dense launch;
 5. kernels against their plain versions, on the inputs the two paths gave
@@ -28,14 +29,25 @@ Phases, each printing its own line; any failed check exits non-zero:
    front, ``try_loop_closure`` every 10 scans, ``LILI_OM_KNN_PRUNED=1``
    throughout: at least one closure fires (ICP, graph solve, correction),
    the next keyframe rebuilds the fusion maps, every search launches the
-   pruned kernel (B3) and none the count-bounded one, and the corrected
-   keyframes stay near the simulator's; after the lap, each closure
-   attempt's fitness untrimmed and trimmed, and how far its submaps lie
-   from the simulated world's surfaces (with ``--out``, the submaps go to
-   ``icp_attempts.npz`` for ``python3 -m tools.replay_icp``); then B3 against the
-   plain version and B1 on the inputs each of its call sites gave it, its
-   bound counting only the pairs of the tiles it scanned;
-7. with ``--profile``, a ``torch.profiler`` window over a few main-path
+   pruned kernel (B3) and none the count-bounded one, B4 launches, and the
+   corrected keyframes stay near the simulator's; after the lap, each
+   closure attempt's fitness untrimmed and trimmed, and how far its submaps
+   lie from the simulated world's surfaces (with ``--out``, the submaps go
+   to ``icp_attempts.npz`` for ``python3 -m tools.replay_icp``); then B3
+   against the plain version and B1 on the inputs each of its call sites
+   gave it, its bound counting only the pairs of the tiles it scanned;
+7. Livox phase: ``LiliOmSystem.process_scan_livox`` at the whole ``fr_iosb``
+   preset (eigen-patch features, reflectivity-weighted fusion) on the same
+   lap with Horizon sweeps at full width (6 × 4000 points, ``n_cols``
+   4000), closures every 10 scans, the pruned switch unset: odometry
+   against the simulated sensor poses, the keyframe RMSE, surf matches on
+   ≥ 90 % of the scans, B1 and B4 launched and B3 not, the closure attempts
+   and their fitness;
+8. B4 at every call site of the three paths (the first call of each from
+   the recorded scan on): ids non-decreasing, two launches bit-identical,
+   equal to the plain version on a CPU copy in float32 and float64, its
+   times beside the plain version's, ``index_add_``'s and the bound;
+9. with ``--profile``, a ``torch.profiler`` window over a few main-path
    frames (device busy share, kernels by device time).
 
 Then one line with the ``kernels`` JSON, the ``nvidia-smi`` name/power-limit
@@ -57,11 +69,14 @@ import numpy as np
 import torch
 
 from lili_om_tpu_torch import cuda_build
+from lili_om_tpu_torch.device import plain_kernels
 from lili_om_tpu_torch.frame import Frame, bench_configs, sim_scans
 from lili_om_tpu_torch.models import system as system_mod
 from lili_om_tpu_torch.models.system import LiliOmSystem
 from lili_om_tpu_torch.ops import knn as K
-from lili_om_tpu_torch.sim.lidar import simulate_scan, spinning_pattern
+from lili_om_tpu_torch.ops import segred as SG
+from lili_om_tpu_torch.ops import voxel as voxel_mod
+from lili_om_tpu_torch.sim.lidar import livox_pattern, simulate_scan, spinning_pattern
 from lili_om_tpu_torch.sim.trajectory import circle_trajectory, pose_at, simulate_imu
 from lili_om_tpu_torch.sim.world import World, make_room_world
 from lili_om_tpu_torch.utils.config import load_config
@@ -74,19 +89,22 @@ FLOP_PER_PAIR = 8  # 3 sub, 3 mul, 2 add for (q-p)^2
 N_WARM = 3
 N_TIMED = 12  # main-path scans timed after the N_WARM warm-up scans
 LARGE_MAP = 98304
-# the same scans through the kernel and through the plain kNN. The searches
-# agree bit for bit, but the voxel sums (index_add_) use atomics on the card
-# and so round in a run-dependent order; the solvers' stopping tests
-# (odometry step norm 1e-5, fusion 1e-4) can turn that into one iteration
-# more or less, a pose change of the order of those tolerances per scan
+# the same scans through the kernels and through their plain versions. The
+# searches agree bit for bit, but the plain run's voxel sums (index_add_)
+# use atomics on the card and so round in a run-dependent order; the
+# solvers' stopping tests (odometry step norm 1e-5, fusion 1e-4) can turn
+# that into one iteration more or less, a pose change of the order of those
+# tolerances per scan
 TRAJ_TOL_M, TRAJ_TOL_RAD = 5e-3, 5e-3
 # odometry against the simulator's ground truth over a short run from rest
 GT_TOL_M, GT_TOL_RAD = 0.25, 0.05
 REPLACES = {"knn_counted": "lili_om_tpu/ops/knn_pallas.py:234",
             "knn_dense": "lili_om_tpu/ops/knn_pallas.py:64",
-            "knn_pruned": "lili_om_tpu/ops/knn_pallas.py:426"}
+            "knn_pruned": "lili_om_tpu/ops/knn_pallas.py:426",
+            "segred": "lili_om_tpu/ops/segred_pallas.py:39"}
 SOURCE = "lili_om_tpu_torch/csrc/knn.cu"
 SOURCE_PRUNED = "lili_om_tpu_torch/csrc/knn_pruned.cu"
+SOURCE_SEGRED = "lili_om_tpu_torch/csrc/segred.cu"
 # system phase: scans, the lap (returns to its start at scan ~139, the
 # speed ramp of circle_trajectory included), closure attempts every 10 scans
 SYS_SCANS = 150
@@ -110,6 +128,11 @@ KF_RMSE_TOL_M = 0.5
 # surfaces: the keyframe poses' error (the bound above) plus the features'
 # own spread
 SUBMAP_SURF_TOL_M = 0.25
+# Livox phase: the Horizon's 24k points per 0.1 s sweep as 6 lines × 4000,
+# binned into the preset's 4000 columns; after the two bootstrap scans at
+# least this share of scans must match surfaces (tests/test_golden_motion.py)
+LIVOX_LINES, LIVOX_PTS = 6, 4000
+ACQUIRED_MIN = 0.9
 DEV = "cuda"
 
 
@@ -124,6 +147,12 @@ def check(ok: bool, what: str):
 
 def sync():
     torch.cuda.synchronize()
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    K.reset_launch_counts()
+    SG.reset_launch_counts()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -142,10 +171,11 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def run_path(cfgs, scans, label: str):
     """Drive ``Frame`` over ``scans`` with the launch counts set to 0 just
-    before and read just after. Returns (frame, poses, per-scan ms, counts)."""
+    before and read just after. Returns (frame, poses, per-scan ms, kNN
+    counts, segment-sum counts)."""
     frame = Frame(cfgs, device=DEV)
     sync()
-    K.reset_launch_counts()
+    reset_counts()
     poses, host_ms, dev_ms = [], [], []
     for s in scans:
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -158,22 +188,24 @@ def run_path(cfgs, scans, label: str):
         dev_ms.append(a.elapsed_time(b))
         poses.append((oout.t.clone(), oout.q.clone(), fout.t_latest.clone(),
                       int(oout.n_corr), int(fout.n_surf_corr), int(fout.n_edge_corr)))
-    counts = dict(K.LAUNCHES)
+    counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
     timed = sorted(host_ms[N_WARM:])
     print(f"[{label}] {len(scans)} scans: per-scan host ms median "
           f"{timed[len(timed) // 2]:.3f} min {timed[0]:.3f} max {timed[-1]:.3f}; "
           f"event ms median {sorted(dev_ms[N_WARM:])[len(timed) // 2]:.3f}; "
           f"launches {sum(counts.values())} "
-          f"{ {f'{w}:{q}x{p}:k{k}': n for (w, q, p, k), n in sorted(counts.items())} }")
-    return frame, poses, host_ms, counts
+          f"{ {f'{w}:{q}x{p}:k{k}': n for (w, q, p, k), n in sorted(counts.items())} }; "
+          f"segred launches {sum(seg_counts.values())}")
+    return frame, poses, host_ms, counts, seg_counts
 
 
-def gt_errors(poses, traj):
-    """Max odometry error against the simulated trajectory, relative to scan 0."""
-    t0, q0 = pose_at(traj, 0.0, device=DEV)
+def gt_errors(poses, pose_fn):
+    """Max odometry error against the simulated sensor poses ``pose_fn(t)``,
+    relative to scan 0."""
+    t0, q0 = pose_fn(0.0)
     et = er = 0.0
     for k, (t, q, *_rest) in enumerate(poses):
-        tk, qk = pose_at(traj, k * 0.1, device=DEV)
+        tk, qk = pose_fn(k * 0.1)
         rt, rq = pose_relative(t0, q0, tk, qk)
         et = max(et, float(torch.linalg.norm(t.double() - rt)))
         dq = quat_mul(quat_conj(rq), q.double())
@@ -250,14 +282,40 @@ class FusionSpy(Patch):
         return self.orig(*args, rebuild=rebuild, **kw)
 
 
+class SegRecorder(Patch):
+    """Wraps ``ops/voxel.py``'s ``segment_sum_auto`` for a run: every call
+    goes on as unwrapped (B4 on the card), and while ``armed`` the inputs of
+    the first call from each call site are copied for the kernel checks. A
+    site is the voxel function and line, its first caller outside
+    ``ops/voxel.py`` and the shape (N, C, num_out)."""
+
+    def __init__(self, armed: bool = True):
+        super().__init__(voxel_mod, "segment_sum_auto")
+        self.armed, self.seen = armed, {}
+
+    def __call__(self, payload, seg_id, num_out):
+        if self.armed:
+            f = sys._getframe(1)
+            inner = f"{f.f_code.co_name}:{f.f_lineno}"
+            while f is not None and f.f_globals.get("__name__") == voxel_mod.__name__:
+                f = f.f_back
+            outer = f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno}" if f else "?"
+            key = (outer, inner, payload.shape[0], payload.shape[1], num_out)
+            if key not in self.seen:
+                self.seen[key] = (payload.clone(), seg_id.clone())
+        return self.orig(payload, seg_id, num_out)
+
+
 def capture_inputs(frame: Frame, scan):
-    """One extra step with the count-bounded and dense wrappers recording
-    their inputs: the tensors each call site of the path hands the kernel."""
-    with Recorder("knn_counted_cuda") as counted, Recorder("knn_dense_cuda") as dense:
+    """One extra step with the count-bounded and dense wrappers and the
+    segment sum recording their inputs: the tensors each call site of the
+    path hands the kernel. Returns (kNN inputs, segment-sum inputs)."""
+    with (Recorder("knn_counted_cuda") as counted, Recorder("knn_dense_cuda") as dense,
+          SegRecorder() as seg):
         frame.step(scan)
     sync()
-    return {(name, q, p): v for name, rec in (("knn_counted", counted), ("knn_dense", dense))
-            for (q, p, _), v in rec.seen.items()}
+    return ({(name, q, p): v for name, rec in (("knn_counted", counted), ("knn_dense", dense))
+             for (q, p, _), v in rec.seen.items()}, seg.seen)
 
 
 def library_knn(queries, points, k, p_mask, q_mask):
@@ -321,26 +379,46 @@ def compare_kernel(name, site, inputs, launches, k=5):
             "library_ms": lib_ms, "shape": [Q, P], "valid": [nq, np_]}
 
 
-def sim_lap(cfg, n: int):
+def sim_lap(cfg, n: int, livox: bool = False):
     """The golden loop of examples/evaluate_presets.py, cut to ``n`` scans:
     a circle at 1.3 m/s in the room world that returns to its start within
     the run, scans cast from the sensor pose of the preset's extrinsic, the
-    IMU at 200 Hz over the whole run. Returns (scans, imu, trajectory)."""
+    IMU at 200 Hz over the whole run. Spinning 64×1800 sweeps as organized
+    images, or with ``livox`` Horizon sweeps of 6 × 4000 points as flat
+    streams (pts, line, time ratio, reflectivity, valid). Returns (scans,
+    imu, trajectory, radius, sensor-in-body (t_sl, q_sl))."""
     radius = 1.3 * SYS_LAP_S / (2.0 * math.pi)
     traj = circle_trajectory(radius=radius, period=SYS_LAP_S, speed_up=3.0)
     world = make_room_world(device=DEV)
-    pattern = spinning_pattern(n_rings=SYS_RINGS, n_cols=SYS_COLS, device=DEV)
+    pattern = (livox_pattern(LIVOX_LINES, LIVOX_PTS, device=DEV) if livox
+               else spinning_pattern(n_rings=SYS_RINGS, n_cols=SYS_COLS, device=DEV))
     q_lb = np.asarray(cfg.fusion.q_lb, float)
     q_sl = quat_conj_np(q_lb[None])[0]
     t_sl = -quat_rotate_np(q_sl[None], np.asarray(cfg.fusion.t_lb, float)[None])[0]
     scans = []
     for k in range(n):
         sc = simulate_scan(world, traj, k * 0.1, pattern, period=0.1, t_sl=t_sl, q_sl=q_sl)
-        scans.append((sc.pts.reshape(SYS_RINGS, SYS_COLS, 3),
-                      sc.valid.reshape(SYS_RINGS, SYS_COLS),
-                      sc.rel_time.reshape(SYS_RINGS, SYS_COLS)))
+        if livox:
+            scans.append((sc.pts, sc.line, sc.rel_time, sc.reflectivity, sc.valid))
+        else:
+            scans.append((sc.pts.reshape(SYS_RINGS, SYS_COLS, 3),
+                          sc.valid.reshape(SYS_RINGS, SYS_COLS),
+                          sc.rel_time.reshape(SYS_RINGS, SYS_COLS)))
     imu = simulate_imu(traj, 0.0, n * 0.1 + 0.1, rate=200.0, device=DEV)
-    return scans, imu, traj, radius
+    return scans, imu, traj, radius, (t_sl, q_sl)
+
+
+def sensor_pose_fn(traj, t_sl, q_sl):
+    """The simulated sensor pose at time t: the body pose composed with the
+    sensor-in-body extrinsic (the odometry's frame is the first sensor
+    pose)."""
+    t_sl = torch.as_tensor(t_sl, dtype=torch.float64, device=DEV)
+    q_sl = torch.as_tensor(q_sl, dtype=torch.float64, device=DEV)
+
+    def pose(t):
+        tb, qb = pose_at(traj, t, device=DEV)
+        return tb + quat_rotate(qb, t_sl), quat_mul(qb, q_sl)
+    return pose
 
 
 def system_config():
@@ -351,20 +429,21 @@ def system_config():
 
 def system_phase():
     """Drive ``LiliOmSystem`` over the lap with the pruned kNN switched on.
-    Returns (system, per-scan host ms, launch counts, recorded inputs,
-    facts for the checks)."""
+    Returns (system, per-scan host ms, kNN launch counts, recorded B3
+    inputs, facts for the checks, the closure attempts, (segment-sum launch
+    counts, recorded B4 inputs))."""
     cfg = system_config()
     lc = dataclasses.replace(cfg.loop_closure, time_thres=SYS_LAP_S / 3.0)
     t0 = time.perf_counter()
-    scans, imu, traj, radius = sim_lap(cfg, SYS_SCANS)
+    scans, imu, traj, radius, _ = sim_lap(cfg, SYS_SCANS)
     sync()
     print(f"[system] cuts: {SYS_SCANS} scans (a lap of {SYS_LAP_S:.1f} s, radius "
           f"{radius:.2f} m, at 1.3 m/s); time_thres {cfg.loop_closure.time_thres} -> "
           f"{lc.time_thres:.2f} s (the lap is shorter than 60 s); deskew_translation on "
           f"(as the JAX golden loop runs); ICP gate as the preset (icp_trim "
           f"{lc.icp_trim}, icp_thres {lc.icp_thres}); sim {time.perf_counter() - t0:.2f} s")
-    sys_ = LiliOmSystem(cfg.odometry, cfg.fusion, cfg.spin_features, lc, cfg.imu_noise,
-                        device=DEV)
+    sys_ = LiliOmSystem(cfg.odometry, cfg.fusion, cfg.spin_features, cfg.livox_features, lc,
+                        cfg.imu_noise, device=DEV)
     sys_.deskew_translation = True
     sys_.push_imu(imu.stamps.cpu().numpy(), imu.accs.cpu().numpy(), imu.gyrs.cpu().numpy())
     t0w, q0w = pose_at(traj, 0.0, device=DEV)
@@ -373,11 +452,11 @@ def system_phase():
     os.environ["LILI_OM_KNN_PRUNED"] = "1"
     try:
         with (Recorder("knn_pruned_cuda", armed=False) as rec, IcpSpy() as icp,
-              FusionSpy() as fus):
+              FusionSpy() as fus, SegRecorder(armed=False) as seg):
             sync()
-            K.reset_launch_counts()
+            reset_counts()
             for k, (img, valid, rel) in enumerate(scans):
-                rec.armed = k >= SYS_RECORD_FROM
+                rec.armed = seg.armed = k >= SYS_RECORD_FROM
                 icp.scan = fus.scan = k
                 t1 = time.perf_counter()
                 sys_.process_scan(img, valid, rel, k * 0.1)
@@ -390,7 +469,7 @@ def system_phase():
                     lc_ms.append(1e3 * (time.perf_counter() - t1))
                     if ok:
                         fired.append((k, float(icp.calls[-1][2].fitness)))
-            counts = dict(K.LAUNCHES)
+            counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
     finally:
         if prev is None:
             os.environ.pop("LILI_OM_KNN_PRUNED", None)
@@ -418,7 +497,7 @@ def system_phase():
              "kf_max": float(kf_err.max()), "n_kf": n,
              "attempts": icp_attempts(icp.calls, sys_.lc_cfg, make_room_world(device=DEV),
                                       t0w, q0w)}
-    return sys_, host_ms, counts, rec.seen, facts, icp.calls
+    return sys_, host_ms, counts, rec.seen, facts, icp.calls, (seg_counts, seg.seen)
 
 
 def surface_distance(world: World, pts):
@@ -523,6 +602,169 @@ def check_system(sys_, host_ms, counts, facts):
         check(max(a["src_surf_p50"], a["tgt_surf_p50"]) < SUBMAP_SURF_TOL_M,
               f"system: the submaps of the attempt at scan {a['scan']} lie off the world's "
               f"surfaces (median {a['src_surf_p50']:.3f} / {a['tgt_surf_p50']:.3f} m)")
+
+
+def livox_phase():
+    """Drive ``LiliOmSystem.process_scan_livox`` at the whole ``fr_iosb``
+    preset over the golden lap with Horizon sweeps at full width (6 × 4000
+    points, ``n_cols`` 4000), ``try_loop_closure`` every 10 scans and the
+    time gate cut as in the spin system phase; ``LILI_OM_KNN_PRUNED`` unset.
+    Returns (system, per-scan host ms, kNN counts, segment-sum counts,
+    recorded B4 inputs, facts)."""
+    cfg = load_config("fr_iosb")
+    lc = dataclasses.replace(cfg.loop_closure, time_thres=SYS_LAP_S / 3.0)
+    t0 = time.perf_counter()
+    scans, imu, traj, radius, (t_sl, q_sl) = sim_lap(cfg, SYS_SCANS, livox=True)
+    sync()
+    print(f"[livox] preset fr_iosb, {SYS_SCANS} sweeps of {LIVOX_LINES}x{LIVOX_PTS} points "
+          f"(n_cols {cfg.livox_features.n_cols}), lap {SYS_LAP_S:.1f} s radius {radius:.2f} m; "
+          f"time_thres {cfg.loop_closure.time_thres} -> {lc.time_thres:.2f} s (local tier "
+          f"{lc.local_time_thres}); capacities: local_map_width "
+          f"{cfg.fusion.local_map_width}, map_surf_cap {cfg.fusion.map_surf_cap}, scan_cap "
+          f"{cfg.odometry.scan_cap}; ICP gate icp_trim {lc.icp_trim} icp_thres {lc.icp_thres}; "
+          f"sim {time.perf_counter() - t0:.2f} s")
+    sys_ = LiliOmSystem(cfg.odometry, cfg.fusion, cfg.spin_features, cfg.livox_features, lc,
+                        cfg.imu_noise, device=DEV)
+    sys_.deskew_translation = True
+    sys_.push_imu(imu.stamps.cpu().numpy(), imu.accs.cpu().numpy(), imu.gyrs.cpu().numpy())
+    t0w, q0w = pose_at(traj, 0.0, device=DEV)
+    fired, host_ms, lc_ms, odo = [], [], [], []
+    prev = os.environ.pop("LILI_OM_KNN_PRUNED", None)
+    try:
+        with SegRecorder(armed=False) as seg, IcpSpy() as icp:
+            sync()
+            reset_counts()
+            for k, (pts, line, ratio, refl, valid) in enumerate(scans):
+                seg.armed = k >= SYS_RECORD_FROM
+                icp.scan = k
+                t1 = time.perf_counter()
+                out = sys_.process_scan_livox(pts, line, ratio, refl, valid, k * 0.1)
+                sync()
+                host_ms.append(1e3 * (time.perf_counter() - t1))
+                odo.append((out.t.clone(), out.q.clone(), int(out.n_corr)))
+                if k % LC_EVERY == 0 and k > 0:
+                    t1 = time.perf_counter()
+                    ok = sys_.try_loop_closure()
+                    sync()
+                    lc_ms.append(1e3 * (time.perf_counter() - t1))
+                    if ok:
+                        fired.append((k, float(icp.calls[-1][2].fitness)))
+            counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
+    finally:
+        if prev is not None:
+            os.environ["LILI_OM_KNN_PRUNED"] = prev
+    n = len(sys_.kf_stamps)
+    g_t = sys_.graph.t[:n].double()
+    gt = torch.stack([pose_relative(t0w, q0w, *pose_at(traj, s, device=DEV))[0]
+                      for s in sys_.kf_stamps])
+    kf_err = torch.linalg.norm(g_t - gt, dim=1)
+    # the odometry against the simulated sensor poses: over the scans the
+    # main path runs from rest (what GT_TOL_* bounds) and over the whole lap
+    pose_fn = sensor_pose_fn(traj, t_sl, q_sl)
+    et, er = gt_errors(odo[:N_WARM + N_TIMED], pose_fn)
+    lap_et, lap_er = gt_errors(odo, pose_fn)
+    corr = [c for _, _, c in odo]
+    facts = {"metrics": sys_.metrics.report(), "fired": fired, "lc_ms": lc_ms,
+             "kf_rmse": float(torch.sqrt(torch.mean(kf_err ** 2))),
+             "kf_max": float(kf_err.max()), "n_kf": n, "odo_err_m": et, "odo_err_rad": er,
+             "lap_odo_err_m": lap_et, "lap_odo_err_rad": lap_er,
+             "acquired": float(np.mean([c > 0 for c in corr[2:]])), "n_corr": corr,
+             "attempts": icp_attempts(icp.calls, sys_.lc_cfg, make_room_world(device=DEV),
+                                      t0w, q0w)}
+    return sys_, host_ms, counts, seg_counts, seg.seen, facts
+
+
+def check_livox(sys_, host_ms, counts, seg_counts, facts):
+    timed = sorted(host_ms[N_WARM:])
+    rep = facts["metrics"]
+    stage = lambda name: rep.get(name, {}).get("p50_ms", float("nan"))
+    print(f"[livox] {len(host_ms)} sweeps, {facts['n_kf']} keyframes: per-scan host ms median "
+          f"{timed[len(timed) // 2]:.3f} min {timed[0]:.3f} max {timed[-1]:.3f}; stage p50 ms "
+          f"preprocess {stage('preprocess'):.3f} odometry {stage('odometry'):.3f} backend "
+          f"{stage('backend'):.3f} (fusion {stage('fusion'):.3f}, densify "
+          f"{stage('densify'):.3f}) icp {stage('icp'):.3f} graph_solve "
+          f"{stage('graph_solve'):.3f}; scans/s over the lap "
+          f"{rep.get('_throughput', {}).get('scans_per_sec', float('nan'))}")
+    print(f"[livox] odometry vs simulated sensor poses: max {facts['odo_err_m']:.4f} m, "
+          f"{facts['odo_err_rad']:.5f} rad over the first {N_WARM + N_TIMED} scans, "
+          f"{facts['lap_odo_err_m']:.4f} m, {facts['lap_odo_err_rad']:.5f} rad over the lap; "
+          f"graph keyframes vs simulator: RMSE "
+          f"{facts['kf_rmse']:.4f} m, max {facts['kf_max']:.4f} m; scans with surf "
+          f"correspondences after scan 2: {100 * facts['acquired']:.1f} %")
+    print(f"[livox] closure attempts {len(facts['lc_ms'])} (ms "
+          f"{[round(x, 1) for x in facts['lc_ms']]}); fired (scan, fitness) {facts['fired']}; "
+          f"rejects {sys_.lc_rejects}; loop factors {len(sys_._loop_pairs)}")
+    for a in facts["attempts"]:
+        print(f"[livox] ICP at scan {a['scan']}: fitness {a['fitness']:.5f} "
+              f"({'accepted' if a['accepted'] else 'rejected'}), trimmed to {ICP_TRIM} "
+              f"{a['trimmed']:.5f}; matched source points beyond {FAR_M} m "
+              f"{100 * a['far_share']:.2f} %; |t_icp| {a['t_icp']:.4f} m; points src "
+              f"{a['n_src']} tgt {a['n_tgt']}; distance to the world's surfaces p50 src "
+              f"{a['src_surf_p50']:.4f} tgt {a['tgt_surf_p50']:.4f} m")
+    print(f"[livox] launches {sum(counts.values())} "
+          f"{ {f'{w}:{q}x{p}:k{k}': c for (w, q, p, k), c in sorted(counts.items())} }; "
+          f"segred {sum(seg_counts.values())}")
+    print("[livox] stage metrics (a sync ends every stage):\n" + sys_.metrics.pretty())
+    for t in sys_.trajectory:
+        check(bool(np.all(np.isfinite(t))), "livox: a pose is not finite")
+    check(facts["odo_err_m"] < GT_TOL_M and facts["odo_err_rad"] < GT_TOL_RAD,
+          f"livox: odometry error {facts['odo_err_m']:.4f} m / {facts['odo_err_rad']:.5f} rad "
+          f"against the simulated sensor poses over the first {N_WARM + N_TIMED} scans")
+    check(facts["kf_rmse"] < KF_RMSE_TOL_M,
+          f"livox: keyframe RMSE {facts['kf_rmse']:.4f} m against the simulator")
+    check(facts["acquired"] >= ACQUIRED_MIN,
+          f"livox: surf correspondences on only {100 * facts['acquired']:.1f} % of the scans")
+    check(sum(c for (w, *_), c in counts.items() if w == "knn_counted") > 0,
+          "livox: B1 did not launch")
+    check(all(w != "knn_pruned" for (w, *_) in counts), "livox: B3 launched")
+    check(sum(seg_counts.values()) > 0, "livox: B4 did not launch")
+
+
+def compare_segred(phase, key, inputs, launches):
+    """B4 at one call site: its ids non-decreasing; two launches bit-identical;
+    equal to the plain version on a CPU copy, in float32 and in float64;
+    its times beside the plain version's, ``zeros().index_add_`` (atomics)
+    and the bound (the bytes: payload and ids read once, output written
+    once, at 3.35 TB/s)."""
+    outer, inner, N, C, M = key
+    pay, ids = inputs
+    site = f"{phase}:{outer}>{inner}:{N}x{C}->{M}"
+    check(bool((ids[1:] >= ids[:-1]).all()), f"B4 {site}: segment ids not non-decreasing")
+    a = SG.segment_sum_sorted_cuda(pay, ids, M)
+    b = SG.segment_sum_sorted_cuda(pay, ids, M)
+    a64 = SG.segment_sum_sorted_cuda(pay.double(), ids, M)
+    sync()
+    ref = SG.segment_sum_sorted_plain(pay.cpu(), ids.cpu(), M)
+    err = float((a.cpu() - ref).abs().max()) if ref.numel() else 0.0
+    check(bool(torch.equal(a, b)), f"B4 {site}: two launches differ")
+    check(bool(torch.equal(a.cpu(), ref)),
+          f"B4 {site}: differs from the plain version on a CPU copy (max {err:.3e})")
+    check(bool(torch.equal(a64.cpu(), SG.segment_sum_sorted_plain(pay.double().cpu(),
+                                                                   ids.cpu(), M))),
+          f"B4 {site}: float64 differs from the plain version on a CPU copy")
+    out = torch.empty((M, C), dtype=pay.dtype, device=pay.device)
+    ids_c = torch.clamp(ids, max=M)
+    ms = cuda_ms(lambda: SG.segment_sum_sorted_cuda(pay, ids, M), 50)
+    kernel_ms = cuda_ms(lambda: SG.launch_kernel(pay, ids, M, out), 50)
+    plain_ms = cuda_ms(lambda: SG.segment_sum_sorted_plain(pay, ids, M), 50)
+    lib_ms = cuda_ms(lambda: torch.zeros((M + 1, C), dtype=pay.dtype,
+                                         device=pay.device).index_add_(0, ids_c, pay), 50)
+    es = pay.element_size()
+    t_bytes = (N * C * es + N * 8 + M * C * es) / PEAK_BYTES
+    t_ops = N * C / PEAK_F32_FLOPS
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    kept = ids[ids < M]
+    longest = int(torch.bincount(kept).max()) if kept.numel() else 0
+    print(f"[kernel] B4 {site}: rows kept {kept.numel()}/{N}, longest segment {longest}; "
+          f"max|Δ| {err:.3e}; wrapper {ms:.4f} ms kernel {kernel_ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms index_add_ {lib_ms:.4f} ms bound {bound_ms:.5f} ms; launches "
+          f"of this shape in the phase {launches}")
+    return {"name": f"segred[{site}]", "route": "cuda", "source": SOURCE_SEGRED,
+            "replaces": REPLACES["segred"], "launches": launches, "max_abs_err": err,
+            "ms": ms, "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "library": "zeros(num_out + 1).index_add_ (atomics)",
+            "shape": [N, C, M], "rows_kept": int(kept.numel()), "longest_segment": longest}
 
 
 def compare_pruned(site, inputs, k, launches):
@@ -661,35 +903,38 @@ def main(argv=None) -> int:
     sync()
     print(f"[sim] {n + 1} scans of {scans[0].img.shape[0]}x{scans[0].img.shape[1]} "
           f"in {time.perf_counter() - t0:.2f} s")
-    frame, poses, host_ms, counts = run_path(cfgs, scans[:n], "main path")
+    frame, poses, host_ms, counts, main_seg_counts = run_path(cfgs, scans[:n], "main path")
     main_counts = counts
     check(K.launch_count("knn_counted") >= 3 * n,
           f"main path: {K.launch_count('knn_counted')} kNN launches for {n} scans")
+    check(SG.launch_count() >= n, f"main path: {SG.launch_count()} B4 launches for {n} scans")
     for (w, q, p, _), c in counts.items():
         check(c >= n, f"main path: call site {w}:{q}x{p} launched {c} times for {n} scans")
     for t, q, ft, *_ in poses:
         check(bool(torch.isfinite(t).all() and torch.isfinite(q).all()
                    and torch.isfinite(ft).all()), "main path: a pose is not finite")
-    et, er = gt_errors(poses, traj)
+    et, er = gt_errors(poses, lambda t: pose_at(traj, t, device=DEV))
     print(f"[main path] odometry vs simulated trajectory: max {et:.4f} m, {er:.5f} rad; "
           f"last scan corr odo/surf/edge {poses[-1][3:]}")
     check(et < GT_TOL_M and er < GT_TOL_RAD,
           f"odometry error {et:.4f} m / {er:.5f} rad against the simulated trajectory")
-    with K.plain_knn():
-        _, poses_plain, host_plain, counts_plain = run_path(cfgs, scans[:n], "plain kNN")
-    check(not counts_plain, "the plain run launched the kernel")
+    with plain_kernels():
+        _, poses_plain, host_plain, counts_plain, seg_plain = run_path(cfgs, scans[:n],
+                                                                       "plain kernels")
+    check(not counts_plain and not seg_plain, "the plain run launched a kernel")
     gt_, gr_ = traj_gap(poses, poses_plain)
-    print(f"[main path] kernel vs plain kNN trajectories: max {gt_:.3e} m, {gr_:.3e} rad")
+    print(f"[main path] kernels vs plain versions, trajectories: max {gt_:.3e} m, "
+          f"{gr_:.3e} rad")
     check(gt_ < TRAJ_TOL_M and gr_ < TRAJ_TOL_RAD,
           f"kernel and plain trajectories differ by {gt_:.3e} m / {gr_:.3e} rad")
-    main_inputs = capture_inputs(frame, scans[n])
+    main_inputs, main_seg = capture_inputs(frame, scans[n])
 
     # 4. large-map path: the dense launch
     big = cfgs._replace(odometry=cfgs.odometry._replace(map_cap=LARGE_MAP))
-    big_frame, _, _, big_counts = run_path(big, scans[:N_WARM + 2], "large-map path")
+    big_frame, _, _, big_counts, _ = run_path(big, scans[:N_WARM + 2], "large-map path")
     check(K.launch_count("knn_dense") >= N_WARM + 2,
           f"large-map path: {K.launch_count('knn_dense')} dense launches")
-    big_inputs = {key: v for key, v in capture_inputs(big_frame, scans[N_WARM + 2]).items()
+    big_inputs = {key: v for key, v in capture_inputs(big_frame, scans[N_WARM + 2])[0].items()
                   if key[0] == "knn_dense"}
 
     # 5. kernels against their plain versions
@@ -713,8 +958,10 @@ def main(argv=None) -> int:
                               (qs.contiguous(), pts, None, None), 0)
 
     # 6. system phase, then B3 at each of its call sites
-    sys_, sys_ms, sys_counts, sys_inputs, facts, icp_calls = system_phase()
+    sys_, sys_ms, sys_counts, sys_inputs, facts, icp_calls, (sys_seg_counts, sys_seg) = \
+        system_phase()
     check_system(sys_, sys_ms, sys_counts, facts)
+    check(sum(sys_seg_counts.values()) > 0, "system: B4 did not launch")
     if args.out:
         # every closure attempt's submaps and ICP result, for a replay
         # through the JAX reference (python3 -m tools.replay_icp)
@@ -739,8 +986,26 @@ def main(argv=None) -> int:
     check({n.split("[")[1].split("_k")[0] for n in (x["name"] for x in kernels)
            if n.startswith("knn_pruned")} >= {"icp", "odometry", "fusion_surf", "fusion_edge"},
           "B3: a call site was not recorded")
+    sys_rejects = sys_.lc_rejects
+    del sys_, sys_inputs, icp_calls
+    torch.cuda.empty_cache()
 
-    # 7. profile
+    # 7. Livox system phase
+    lvx, lvx_ms, lvx_counts, lvx_seg_counts, lvx_seg, lvx_facts = livox_phase()
+    check_livox(lvx, lvx_ms, lvx_counts, lvx_seg_counts, lvx_facts)
+    lvx_rejects = lvx.lc_rejects
+    del lvx
+
+    # 8. B4 against its plain version at each call site of the three paths
+    for phase, seen, seg_counts in (("main", main_seg, main_seg_counts),
+                                    ("system", sys_seg, sys_seg_counts),
+                                    ("livox", lvx_seg, lvx_seg_counts)):
+        check(bool(seen), f"B4: no call site recorded on the {phase} path")
+        for key, inputs in sorted(seen.items()):
+            kernels.append(compare_segred(phase, key, inputs,
+                                          seg_counts.get(("segred",) + key[2:], 0)))
+
+    # 9. profile
     if args.profile:
         timed = sorted(host_ms[N_WARM:])
         profile_frames(frame, scans[N_WARM:N_WARM + 5], timed[len(timed) // 2])
@@ -748,9 +1013,11 @@ def main(argv=None) -> int:
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump({"device": name, "nvidia_smi": smi, "per_scan_host_ms": host_ms,
-                       "per_scan_host_ms_plain_knn": host_plain,
-                       "system": {"per_scan_host_ms": sys_ms, "lc_rejects": sys_.lc_rejects,
+                       "per_scan_host_ms_plain": host_plain,
+                       "system": {"per_scan_host_ms": sys_ms, "lc_rejects": sys_rejects,
                                   **facts},
+                       "livox": {"per_scan_host_ms": lvx_ms, "lc_rejects": lvx_rejects,
+                                 **lvx_facts},
                        "kernels": kernels + [unmasked]}, f, indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

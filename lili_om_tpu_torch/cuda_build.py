@@ -21,7 +21,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"knn": "knn.cu", "knn_pruned": "knn_pruned.cu"}
+SOURCES = {"knn": "knn.cu", "knn_pruned": "knn_pruned.cu", "segred": "segred.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -1,7 +1,12 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution shared by every entry point of the port, and the switch
+that holds the CUDA kernels against their plain versions."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+_FORCE_PLAIN = False
 
 
 def resolve_device(device=None) -> torch.device:
@@ -14,3 +19,22 @@ def resolve_device(device=None) -> torch.device:
             "lili_om_tpu_torch: no CUDA device is available; pass "
             "device='cpu' to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every dispatcher (``knn_auto``, ``segment_sum_auto``) runs its plain
+    version on CUDA tensors too — for holding the kernels against it
+    (chip_smoke.py); never used by the pipeline itself."""
+    global _FORCE_PLAIN
+    prev, _FORCE_PLAIN = _FORCE_PLAIN, True
+    try:
+        yield
+    finally:
+        _FORCE_PLAIN = prev
+
+
+def use_kernel(x: torch.Tensor) -> bool:
+    """Whether a dispatcher launches its CUDA kernel for tensor ``x``: it is
+    on a CUDA device and :func:`plain_kernels` is not active."""
+    return x.device.type == "cuda" and not _FORCE_PLAIN

@@ -17,25 +17,33 @@ synchronize, so it is the stage's own time there. Stages: ``preprocess``,
 ``backend``); ``submaps``, ``icp``, ``graph_solve`` and ``lc_inlock`` per
 closure attempt.
 
-Not ported yet: the Livox path (``process_scan_livox``), the global map and
-its export (``build_global_map``, ``export_map``, ``map_callback``), and the
-map-sharded backend (``mesh``).
+Two sensor variants share the backend: a spinning LiDAR's organized sweep
+goes through :meth:`LiliOmSystem.process_scan`, a Livox Horizon's flat point
+stream (line id, time ratio, reflectivity per point) through
+:meth:`LiliOmSystem.process_scan_livox`, whose eigen-patch features and
+reflectivity channel feed the reflectivity-weighted fusion of the Livox
+presets.
+
+Not ported yet: the global map and its export (``build_global_map``,
+``export_map``, ``map_callback``), and the map-sharded backend (``mesh``).
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.features_livox import LivoxFeatureConfig, bin_livox_image, extract_features_livox
 from ..ops.features_spin import (SpinFeatureConfig, extract_features_spin, integrate_gyro,
                                  undistort)
 from ..ops.icp import icp_point_to_plane
 from ..ops.preintegration import ImuNoise
-from ..ops.voxel import voxel_downsample, voxel_downsample_np
+from ..ops.voxel import pad_cloud, voxel_downsample, voxel_downsample_np
 from ..utils.config import LoopClosureConfig
 from ..utils.math import (pose_relative, quat_conj_np, quat_mul, quat_mul_np, quat_normalize,
                           quat_normalize_np, quat_rotate, quat_rotate_np)
@@ -46,7 +54,7 @@ from .odometry import OdometryConfig, init_state as init_odo_state, odometry_ste
 from .pose_graph import (add_loop, add_node, ensure_capacity, init_graph,
                          optimize_graph_chain, set_loop, solve_graph_incremental)
 
-__all__ = ["LiliOmSystem", "LoopClosureConfig"]
+__all__ = ["LiliOmSystem", "LivoxKeyframePayload", "LoopClosureConfig"]
 
 
 def _np(x) -> np.ndarray:
@@ -70,9 +78,22 @@ def _preprocess_spin(img, valid, rel_time, dts, gyrs, imu_mask, t_scan, q_lb,
     return extract_features_spin(flat.reshape(img.shape), valid, rel_time, cfg, device=device)
 
 
+class LivoxKeyframePayload(NamedTuple):
+    """The Livox path's deferred-backend handoff: what the backend needs of
+    a keyframe (the spin path hands its ``FeatureClouds`` instead)."""
+
+    surf: torch.Tensor
+    surf_mask: torch.Tensor
+    surf_refl: torch.Tensor
+    edge: torch.Tensor
+    edge_mask: torch.Tensor
+    full_pts: torch.Tensor
+    full_mask: torch.Tensor
+
+
 class LiliOmSystem:
-    """End-to-end LiDAR-inertial SLAM engine, spinning-LiDAR wiring. Runs on
-    ``device`` (None = the CUDA device)."""
+    """End-to-end LiDAR-inertial SLAM engine, spinning-LiDAR and Livox
+    wiring. Runs on ``device`` (None = the CUDA device)."""
 
     # unconsumed IMU backlog bound (~14 min at 200 Hz); consumed samples are
     # trimmed as keyframes integrate past them (_trim_imu)
@@ -81,6 +102,7 @@ class LiliOmSystem:
     def __init__(self, odo_cfg: OdometryConfig = OdometryConfig(),
                  fusion_cfg: FusionConfig = FusionConfig(),
                  feat_cfg: SpinFeatureConfig = SpinFeatureConfig(),
+                 livox_cfg: LivoxFeatureConfig = LivoxFeatureConfig(),
                  lc_cfg: LoopClosureConfig | None = None, noise: ImuNoise = ImuNoise(),
                  graph_capacity: int = 512, q0=None, dtype=torch.float32, mesh=None,
                  device=None):
@@ -88,6 +110,7 @@ class LiliOmSystem:
             raise NotImplementedError("the map-sharded backend (mesh) is not ported yet")
         self.device = resolve_device(device)
         self.odo_cfg, self.fusion_cfg, self.feat_cfg = odo_cfg, fusion_cfg, feat_cfg
+        self.livox_cfg = livox_cfg
         self.lc_cfg = LoopClosureConfig() if lc_cfg is None else lc_cfg
         self.noise = noise
         self.dtype = dtype
@@ -232,15 +255,32 @@ class LiliOmSystem:
             fc = _preprocess_spin(img, self._tensor(valid, torch.bool), rel_time, dts, gyrs,
                                   imu_mask, t_scan, self._tensor(self.fusion_cfg.q_lb), fcfg,
                                   self.device)
+        out, summary = self._odometry(fc.surf_pts, fc.surf_mask, stamp,
+                                      "check n_cols/ring mapping and feature thresholds")
+        if self.if_to_deskew and out.is_keyframe:
+            rt = self._tensor(summary[3:6])
+            fc = fc._replace(surf_pts=_reskew(fc.surf_pts, fc.surf_rel_time, rt),
+                             edge_pts=_reskew(fc.edge_pts, fc.edge_rel_time, rt),
+                             full_pts=_reskew(fc.full_pts, fc.full_rel_time, rt))
+        if defer_backend:
+            return out, (fc if out.is_keyframe else None)
+        if out.is_keyframe:
+            with self.metrics.stage("backend"):
+                self._on_keyframe(fc, stamp)
+        return out
+
+    def _odometry(self, surf, surf_mask, stamp: float, starved_hint: str):
+        """Scan-to-map odometry, then one host transfer of what the frame's
+        control flow needs: the trajectory, the sweep translation for the
+        next deskew and the feature-starvation watchdog. Returns (out with a
+        host ``is_keyframe``, the host summary [t, rel_t, kf, n_corr])."""
         with self.metrics.stage("odometry"):
             # 8 bootstrap rounds for the first two frames
             rounds = (self.odo_cfg.max_rounds if self.n_frames < 2
                       else self.odo_cfg.scan_match_cnt)
-            self.odo_state, out = odometry_step(self.odo_state, fc.surf_pts, fc.surf_mask,
-                                                self.odo_cfg, n_rounds=rounds,
-                                                device=self.device)
+            self.odo_state, out = odometry_step(self.odo_state, surf, surf_mask, self.odo_cfg,
+                                                n_rounds=rounds, device=self.device)
         self.n_frames += 1
-        # one host transfer for everything this frame's control flow needs
         summary = _np(torch.cat([out.t, out.rel_t, torch.stack([
             out.is_keyframe.to(self.dtype), out.n_corr.to(self.dtype)])]))
         out = out._replace(is_keyframe=bool(summary[6] > 0.5))
@@ -257,26 +297,85 @@ class LiliOmSystem:
             self._starved_frames += 1
             if self._starved_frames in (3, 50, 500):
                 warnings.warn(f"no surf correspondences for {self._starved_frames} frames — "
-                              "check n_cols/ring mapping and feature thresholds")
+                              + starved_hint)
         else:
             self._starved_frames = 0
+        return out, summary
 
-        if self.if_to_deskew and out.is_keyframe:
-            rt = self._tensor(summary[3:6])
-            fc = fc._replace(surf_pts=_reskew(fc.surf_pts, fc.surf_rel_time, rt),
-                             edge_pts=_reskew(fc.edge_pts, fc.edge_rel_time, rt),
-                             full_pts=_reskew(fc.full_pts, fc.full_rel_time, rt))
-        if defer_backend:
-            return out, (fc if out.is_keyframe else None)
+    def _undistort_with_buffer(self, flat_pts, rel_flat, stamp):
+        """The Livox path's gyro undistortion over the sweep, plus the
+        translation deskew ``+ ratio·t_rel`` when ``deskew_translation`` is
+        on (the sensor advanced by ratio·t_rel when the point was taken)."""
+        dts, gyrs, imu_mask = self._gyro_slice_padded(stamp)
+        q_scan = integrate_gyro(dts, gyrs, imu_mask)
+        t_scan = self._tensor(self._last_rel_t) if self.deskew_translation else None
+        return undistort(flat_pts, rel_flat, q_scan, t_scan=t_scan)
+
+    def process_scan_livox(self, pts, line, ratio, refl, valid, stamp: float,
+                           defer_backend: bool = False):
+        """One Livox sweep as flat point arrays (N,·): xyz, line id 0..5, time
+        ratio in [0, 1), reflectivity (the curvature channel is
+        0.1·reflectivity, as the reference's FormatConvert packs it). IMU
+        samples covering the sweep must already be pushed. Returns the
+        frontend output; with ``defer_backend``, ``(out, LivoxKeyframePayload
+        or None)`` and the keyframe goes to :meth:`process_keyframe` later.
+
+        ``livox_cfg.n_cols`` must match the stream's points per line per
+        sweep, or the extractor starves (``ops/features_livox.py``)."""
+        self.metrics.count_scan()
+        pts = self._tensor(pts)
+        ratio = self._tensor(ratio)
+        valid = self._tensor(valid, torch.bool)
+        with self.metrics.stage("preprocess"):
+            pts = self._undistort_with_buffer(pts, ratio, stamp)
+            img, img_curv, img_valid = bin_livox_image(
+                pts, self._tensor(line, torch.int32), ratio, 0.1 * self._tensor(refl), valid,
+                self.livox_cfg)
+            lf = extract_features_livox(img, img_curv, img_valid, self.livox_cfg,
+                                        device=self.device)
+            # the surf set bounded to the odometry capacity by a 0.3 m voxel
+            # downsample; the reflectivity (and under if_to_deskew the point
+            # time) is averaged alongside, as PCL's VoxelGrid averages intensity
+            feats = (torch.stack([lf.surf_curv, lf.surf_rel_time], dim=1) if self.if_to_deskew
+                     else lf.surf_curv[:, None])
+            surf, surf_refl, surf_mask = voxel_downsample(lf.surf_pts, lf.surf_mask, 0.3,
+                                                          self.odo_cfg.scan_cap, feats=feats)
+        out, summary = self._odometry(surf, surf_mask, stamp,
+                                      "check feature thresholds and scan binning")
+
+        payload = None
         if out.is_keyframe:
+            edge, edge_mask = pad_cloud(lf.edge_pts, lf.edge_mask, self.fusion_cfg.kf_edge_cap)
+            full, surf_kf = pts, surf
+            if self.if_to_deskew:
+                rt = self._tensor(summary[3:6])
+                surf_kf = _reskew(surf, surf_refl[:, 1], rt)
+                edge_rel, _ = pad_cloud(lf.edge_rel_time[:, None].expand(-1, 3), lf.edge_mask,
+                                        self.fusion_cfg.kf_edge_cap)
+                edge = _reskew(edge, edge_rel[:, 0], rt)
+                full = _reskew(pts, ratio, rt)
+            payload = LivoxKeyframePayload(surf_kf, surf_mask, surf_refl[:, 0], edge, edge_mask,
+                                           full, valid)
+        if defer_backend:
+            return out, payload
+        if payload is not None:
             with self.metrics.stage("backend"):
-                self._on_keyframe(fc, stamp)
+                self._on_livox_keyframe(payload, stamp)
         return out
 
     def process_keyframe(self, fc, stamp: float):
-        """Backend half of a deferred keyframe (see ``defer_backend``)."""
+        """Backend half of a deferred keyframe (see ``defer_backend``): the
+        spin path's ``FeatureClouds`` or the Livox path's
+        :class:`LivoxKeyframePayload`."""
         with self.metrics.stage("backend"):
-            self._on_keyframe(fc, stamp)
+            if isinstance(fc, LivoxKeyframePayload):
+                self._on_livox_keyframe(fc, stamp)
+            else:
+                self._on_keyframe(fc, stamp)
+
+    def _on_livox_keyframe(self, p: LivoxKeyframePayload, stamp):
+        self._on_keyframe_clouds(p.surf, p.surf_mask, p.surf_refl, p.edge, p.edge_mask, stamp,
+                                 full=(p.full_pts, p.full_mask))
 
     def _on_keyframe(self, fc, stamp):
         self._on_keyframe_clouds(fc.surf_pts, fc.surf_mask, torch.zeros_like(fc.surf_pts[:, 0]),

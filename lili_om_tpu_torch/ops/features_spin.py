@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..utils.math import exp_so3, quat_conj, quat_mul, quat_normalize, quat_rotate, quat_slerp
+from .scatter import scatter_last
 from .voxel import voxel_downsample, voxel_downsample_ordered
 
 
@@ -106,7 +107,7 @@ def ring_from_angle(pts: torch.Tensor, n_rings: int):
 
 def organize_cloud(pts: torch.Tensor, valid: torch.Tensor, n_rings: int, n_cols: int):
     """Scatter an unorganized cloud into a (rings × azimuth-columns) image;
-    later writes win on collisions."""
+    the last writer wins on collisions (``ops/scatter.py``)."""
     ring, ok = ring_from_angle(pts, n_rings)
     az = torch.atan2(pts[:, 1], pts[:, 0])
     col = torch.remainder(torch.floor((az + math.pi) / (2 * math.pi) * n_cols).to(torch.int64), n_cols)
@@ -114,14 +115,11 @@ def organize_cloud(pts: torch.Tensor, valid: torch.Tensor, n_rings: int, n_cols:
     ring = ring.to(torch.int64)
     # as the JAX scatter: rejected points write zeros at pixel (0, 0)
     flat = torch.where(ok, ring * n_cols + col, 0)
-    dev = pts.device
-    img = torch.zeros((n_rings * n_cols, 3), dtype=pts.dtype, device=dev)
-    img[flat] = torch.where(ok[:, None], pts, 0.0)
-    img_valid = torch.zeros((n_rings * n_cols,), dtype=torch.int32, device=dev)
-    img_valid.scatter_reduce_(0, flat, ok.to(torch.int32), reduce="amax")
     rel = (az + math.pi) / (2 * math.pi)
-    rel_img = torch.zeros((n_rings * n_cols,), dtype=pts.dtype, device=dev)
-    rel_img[flat] = torch.where(ok, rel, 0.0)
+    img, rel_img = scatter_last(flat, n_rings * n_cols, torch.where(ok[:, None], pts, 0.0),
+                                torch.where(ok, rel, 0.0))
+    img_valid = torch.zeros((n_rings * n_cols,), dtype=torch.int32, device=pts.device)
+    img_valid.scatter_reduce_(0, flat, ok.to(torch.int32), reduce="amax")
     return (img.reshape(n_rings, n_cols, 3), (img_valid > 0).reshape(n_rings, n_cols),
             rel_img.reshape(n_rings, n_cols))
 

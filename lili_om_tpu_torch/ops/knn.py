@@ -24,13 +24,13 @@ queries give (+inf, 0).
 from __future__ import annotations
 
 import collections
-import contextlib
 import ctypes
 import os
 from typing import NamedTuple
 
 import torch
 
+from ..device import use_kernel
 from ..utils.math import quat_rotate
 
 # resident-map bound of the count-bounded kernel, as in the JAX dispatch
@@ -42,8 +42,6 @@ COUNTED_MAX_P = 65536
 # (wrapper name, queries Q, map points P, k): one key per call site of the path
 LAUNCHES: collections.Counter = collections.Counter()
 
-_FORCE_PLAIN = False
-
 
 def reset_launch_counts():
     LAUNCHES.clear()
@@ -53,18 +51,6 @@ def launch_count(name: str | None = None) -> int:
     """Launches of wrapper ``name`` ("knn_counted" / "knn_dense" /
     "knn_pruned"; None: all)."""
     return sum(n for key, n in LAUNCHES.items() if name is None or key[0] == name)
-
-
-@contextlib.contextmanager
-def plain_knn():
-    """Run the plain version on CUDA tensors too — for holding the kernel
-    against it (chip_smoke.py); never used by the pipeline itself."""
-    global _FORCE_PLAIN
-    prev, _FORCE_PLAIN = _FORCE_PLAIN, True
-    try:
-        yield
-    finally:
-        _FORCE_PLAIN = prev
 
 
 def knn(queries: torch.Tensor, points: torch.Tensor, k: int = 5,
@@ -417,7 +403,7 @@ def knn_auto(queries, points, k: int = 5, p_mask=None, q_mask=None):
     one under ``LILI_OM_KNN_PRUNED=1``, else count-bounded when a mask is
     given and P ≤ 65536 and dense otherwise, as the JAX dispatch picks its
     Pallas kernels — and the plain version for CPU tensors."""
-    if queries.device.type == "cuda" and not _FORCE_PLAIN:
+    if use_kernel(queries):
         if pruned_enabled():
             return knn_pruned_cuda(queries, points, k, p_mask, q_mask)
         if points.shape[0] <= COUNTED_MAX_P and (p_mask is not None or q_mask is not None):

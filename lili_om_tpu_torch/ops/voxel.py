@@ -3,7 +3,8 @@ the functions on the per-scan path, and the host-side exact downsample of
 the loop-closure submaps).
 
 Centroid per voxel, computed as one sort by a scrambled voxel key plus one
-segment sum, with a static output capacity and a validity mask. Keys pack
+sorted segment sum (``ops/segred.py``, kernel B4 on the card), with a
+static output capacity and a validity mask. Keys pack
 3×10-bit cells relative to the cloud's minimum cell, exactly as the JAX
 package does, so the output slots come out in the same order: ascending
 scrambled key. Rows inside one voxel segment may be summed in another order
@@ -18,6 +19,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from .segred import segment_sum_auto
 
 _BITS = 10  # cells per axis = 1024
 _I32_MAX = 2**31 - 1
@@ -72,10 +75,12 @@ def _starts(key_s: torch.Tensor, grp_s: Optional[torch.Tensor] = None) -> torch.
     return torch.cat([torch.ones(1, dtype=torch.bool, device=key_s.device), change])
 
 
-def _segment_sum(payload: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    out = torch.zeros((n,) + payload.shape[1:], dtype=payload.dtype,
-                      device=payload.device)
-    return out.index_add_(0, seg, payload)
+def _key_order(scram: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Stable sort order by scrambled key, invalid rows strictly last (an
+    int64 key: as an int32 ``I32_MAX`` fill, a valid row whose grouped mix
+    equals ``I32_MAX`` would sort among the invalid ones, split its voxel
+    and break the non-decreasing segment ids the segment sum takes)."""
+    return torch.argsort(torch.where(valid, scram.to(torch.int64), 2**31), stable=True)
 
 
 def _segment_reduce(vals: torch.Tensor, seg: torch.Tensor, n: int, how: str,
@@ -95,8 +100,7 @@ def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor, leaf: float, max_out
     key = voxel_keys(pts, leaf, mask)
     key = torch.where(mask, key, _I32_MAX)
     scram = _scramble(key) if groups is None else _group_mix(_scramble(key), groups)
-    scram = torch.where(mask, scram, _I32_MAX)
-    order = torch.argsort(scram, stable=True)
+    order = _key_order(scram, mask)
     key_s = key[order]
     pts_s = pts[order]
     valid_s = key_s != _I32_MAX
@@ -114,7 +118,7 @@ def voxel_downsample(pts: torch.Tensor, mask: torch.Tensor, leaf: float, max_out
         payload.append(feats[order].to(pts.dtype))
     payload.append(ones[:, None])
     stacked = torch.cat(payload, dim=1) * ones[:, None]
-    sums = _segment_sum(stacked, seg_id_c, max_out + 1)[:max_out]
+    sums = segment_sum_auto(stacked, seg_id_c, max_out)
     return _centroids(sums, feats is not None)
 
 
@@ -157,7 +161,7 @@ def voxel_downsample_ordered(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
         payload.append(feats.to(pts.dtype))
     payload.append(ones[:, None])
     stacked = torch.cat(payload, dim=1) * ones[:, None]
-    run_sums = _segment_sum(stacked, run_id_c, runs_cap + 1)[:runs_cap]
+    run_sums = segment_sum_auto(stacked, run_id_c, runs_cap)
     run_key = _segment_reduce(torch.where(in_cap, key, _I32_MAX), run_id_c,
                               runs_cap + 1, "amin", _I32_MAX)[:runs_cap]
     run_grp = _segment_reduce(torch.where(in_cap, grp, _I32_MIN), run_id_c,
@@ -168,8 +172,7 @@ def voxel_downsample_ordered(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
     run_key = torch.where(run_valid, run_key, _I32_MAX)
     scram = (_scramble(run_key) if groups is None
              else _group_mix(_scramble(run_key), run_grp))
-    scram = torch.where(run_valid, scram, _I32_MAX)
-    order = torch.argsort(scram, stable=True)
+    order = _key_order(scram, run_valid)
     key_s = run_key[order]
     sums_s = run_sums[order]
     valid_s = key_s != _I32_MAX
@@ -179,8 +182,7 @@ def voxel_downsample_ordered(pts: torch.Tensor, mask: torch.Tensor, leaf: float,
     seg_id = torch.cumsum(_starts(key_s, grp_s).to(torch.int32), 0) - 1
     in_cap2 = (seg_id < max_out) & valid_s
     seg_id_c = torch.where(in_cap2, seg_id, max_out).to(torch.int64)
-    sums = _segment_sum(sums_s * in_cap2[:, None].to(sums_s.dtype), seg_id_c,
-                        max_out + 1)[:max_out]
+    sums = segment_sum_auto(sums_s * in_cap2[:, None].to(sums_s.dtype), seg_id_c, max_out)
     return _centroids(sums, feats is not None)
 
 
@@ -200,8 +202,7 @@ def merge_voxel_entries(cells, sums, cnt, valid, num_out: int,
     rel = torch.clamp(cells - cmin, 0, (1 << _BITS) - 1)
     key = (rel[..., 0] << (2 * _BITS)) | (rel[..., 1] << _BITS) | rel[..., 2]
     key = torch.where(valid, key, _I32_MAX)
-    scram = torch.where(valid, _scramble(key), _I32_MAX)
-    order = torch.argsort(scram, stable=True)
+    order = _key_order(_scramble(key), valid)
     key_s = key[order]
     payload = torch.cat([sums, cnt[:, None]], dim=1)[order]
     selbits = None
@@ -217,7 +218,7 @@ def merge_voxel_entries(cells, sums, cnt, valid, num_out: int,
     w = in_cap.to(sums.dtype)
 
     def reduce(sel_w):
-        s = _segment_sum(payload * sel_w[:, None], seg_id_c, num_out + 1)[:num_out]
+        s = segment_sum_auto(payload * sel_w[:, None], seg_id_c, num_out)
         c = s[:, -1]
         return s[:, :-1], c, c > 0.5  # integer counts; fp residue of add/sub
 

@@ -1,6 +1,6 @@
-"""Spinning-LiDAR scan simulator (port of ``lili_om_tpu/sim/lidar.py``,
-``spinning_pattern`` and ``simulate_scan``). Each ray is cast from the
-sensor's pose at its own time stamp, so clouds carry real motion
+"""LiDAR scan simulator (port of ``lili_om_tpu/sim/lidar.py``): the spinning
+and the Livox Horizon patterns and ``simulate_scan``. Each ray is cast from
+the sensor's pose at its own time stamp, so clouds carry real motion
 distortion."""
 from __future__ import annotations
 
@@ -42,6 +42,32 @@ def spinning_pattern(n_rings: int = 16, n_cols: int = 1800,
     rel = (az / (2.0 * math.pi)).expand(n_rings, n_cols)
     line = torch.arange(n_rings, dtype=torch.int32, device=device)[:, None].expand(n_rings, n_cols)
     return ScanPattern(dirs.reshape(-1, 3), rel.reshape(-1).to(dtype), line.reshape(-1))
+
+
+def livox_pattern(n_lines: int = 6, pts_per_line: int = 4000,
+                  fov_h_deg: float = 81.7, fov_v_deg: float = 25.1,
+                  f_fast: float = 50.0, f_slow: float = 7.3, period: float = 0.1,
+                  dtype=torch.float32, device=None) -> ScanPattern:
+    """Livox-Horizon-like non-repetitive pattern: the 6 lines share one fast
+    azimuth sweep of the 81.7° field (they are stacked vertically and move
+    together, as the 6-line × 6-column patches need) and each wobbles in
+    its own elevation band; points are ordered in time along each line."""
+    t = (torch.arange(pts_per_line, dtype=torch.float64, device=device)
+         / pts_per_line).to(dtype)
+    li = torch.arange(n_lines, dtype=dtype, device=device)
+    phase = 2.0 * math.pi * li / n_lines
+    tt = t[None, :] * period
+    az = math.radians(fov_h_deg / 2) * torch.sin(2 * math.pi * f_fast * tt) \
+        * torch.ones_like(phase[:, None])
+    band = math.radians(fov_v_deg) * ((li + 0.5) / n_lines - 0.5)
+    el = band[:, None] + math.radians(fov_v_deg / (2 * n_lines)) * torch.sin(
+        2 * math.pi * f_slow * tt + 2.3 * phase[:, None])
+    ce = torch.cos(el)
+    dirs = torch.stack([ce * torch.cos(az), ce * torch.sin(az), torch.sin(el)], dim=-1)
+    rel = t[None, :].expand(n_lines, pts_per_line)
+    line = torch.arange(n_lines, dtype=torch.int32, device=device)[:, None].expand(
+        n_lines, pts_per_line)
+    return ScanPattern(dirs.reshape(-1, 3), rel.reshape(-1), line.reshape(-1))
 
 
 def simulate_scan(world: World, traj, t_start: float, pattern: ScanPattern,

@@ -1,17 +1,19 @@
-"""Dataset presets of the port (a copy of the sections of
-``lili_om_tpu/utils/config.py`` that the per-scan loop needs; the tests hold
-the copy against the JAX package's presets).
-
-Only ``fr_iosb_rot`` — the spinning 64-line FR_IOSB configuration
-(LiLi-OM-ROT/config/config_fr_iosb.yaml) that ``bench.py`` runs — is ported
-so far, with its loop-closure section.
+"""Dataset presets of the port: a copy of ``lili_om_tpu/utils/config.py``,
+every preset field for field (the tests hold the copy against the JAX
+package's presets). Each preset bundles the stage configs of one dataset's
+YAML of the reference; ``load_config`` takes per-section overrides, and
+unknown keys fall back to the defaults with a warning, as the reference's
+``getParameter`` does.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
+from typing import Optional
 
 from ..models.fusion import FusionConfig
 from ..models.odometry import OdometryConfig
+from ..ops.features_livox import LivoxFeatureConfig
 from ..ops.features_spin import SpinFeatureConfig
 from ..ops.preintegration import ImuNoise
 
@@ -59,12 +61,63 @@ class SystemConfig:
     odometry: OdometryConfig = OdometryConfig()
     fusion: FusionConfig = FusionConfig()
     spin_features: SpinFeatureConfig = SpinFeatureConfig()
+    livox_features: LivoxFeatureConfig = LivoxFeatureConfig()
     loop_closure: LoopClosureConfig = dataclasses.field(default_factory=LoopClosureConfig)
     imu_noise: ImuNoise = ImuNoise()
     imu_rate: float = 200.0
     scan_period: float = 0.1
     if_to_deskew: bool = False
     mapping_interval: int = 2
+
+
+def _merge_namedtuple(base, overrides: dict, ctx: str):
+    bad = set(overrides) - set(base._fields)
+    if bad:
+        warnings.warn(f"{ctx}: unknown keys {sorted(bad)} ignored (defaulting, "
+                      "as the reference's getParameter does)")
+    return base._replace(**{k: v for k, v in overrides.items() if k in base._fields})
+
+
+def load_config(preset: str = "fr_iosb", overrides: Optional[dict] = None) -> SystemConfig:
+    """Preset ``preset`` with ``overrides`` ({section: {field: value}} for
+    the config sections, {field: value} for a plain field) applied."""
+    cfg = PRESETS[preset]()
+    if overrides:
+        for section, vals in overrides.items():
+            cur = getattr(cfg, section)
+            if hasattr(cur, "_fields"):
+                setattr(cfg, section, _merge_namedtuple(cur, vals, section))
+            elif dataclasses.is_dataclass(cur):
+                for k, v in vals.items():
+                    if hasattr(cur, k):
+                        setattr(cur, k, v)
+                    else:
+                        warnings.warn(f"{section}: unknown key {k} ignored")
+            else:
+                setattr(cfg, section, vals)
+    return cfg
+
+
+def config_fr_iosb() -> SystemConfig:
+    """Livox FR_IOSB (LiLi-OM/config/config_fr_iosb.yaml)."""
+    return SystemConfig(
+        variant="livox",
+        odometry=OdometryConfig(scan_match_cnt=1, gn_iters=15),  # yaml:9-10
+        fusion=FusionConfig(
+            window=3, local_map_width=40, lidar_const=20.0, reflect_thres=15.0,
+            max_num_iter=15,  # yaml:15
+            surf_dist_thres=0.12, kd_max_radius=1.0, surf_leaf=0.4, edge_leaf=0.2,
+            use_reflectivity=True, weight_gate=0.2,
+            q_lb=(0.0, 0.0, 0.0, 1.0), t_lb=(-0.0265, 0.0202, 0.05309),  # yaml:34-41
+        ),
+        livox_features=LivoxFeatureConfig(surf_thres=0.28, edge_thres=4.0),  # yaml:5-6
+        loop_closure=LoopClosureConfig(
+            enabled=True, time_thres=25.0, local_time_thres=25.0,  # yaml:25-26
+            search_radius=10.0, map_width=20, latest_width=1, icp_thres=0.1,
+            icp_iters=100, icp_trim=1.0),
+        imu_noise=ImuNoise(),  # the Livox densities hardcoded in the reference
+        mapping_interval=7,  # yaml:30
+    )
 
 
 def config_fr_iosb_rot() -> SystemConfig:
@@ -92,12 +145,124 @@ def config_fr_iosb_rot() -> SystemConfig:
     )
 
 
-PRESETS = {"fr_iosb_rot": config_fr_iosb_rot}
+def config_synthetic() -> SystemConfig:
+    """Simulation-friendly preset (smaller capacities, ROT wiring)."""
+    return SystemConfig(
+        variant="rot",
+        odometry=OdometryConfig(n_recent_frames=10, scan_cap=4096, query_cap=1024,
+                                map_cap=16384),
+        fusion=FusionConfig(
+            window=3, local_map_width=10, kf_surf_cap=4096, kf_edge_cap=1024,
+            map_surf_cap=16384, map_edge_cap=2048, use_reflectivity=False,
+            weight_gate=0.3, lidar_const=7.5, max_num_iter=6),
+        spin_features=SpinFeatureConfig(surf_cap=4096),
+        loop_closure=LoopClosureConfig(enabled=True, time_thres=10.0),
+    )
 
 
-def load_config(preset: str = "fr_iosb_rot") -> SystemConfig:
-    try:
-        return PRESETS[preset]()
-    except KeyError:
-        raise NotImplementedError(
-            f"preset {preset!r} is not ported yet (ported: {sorted(PRESETS)})") from None
+def _livox_variant(base: SystemConfig, **fusion_over) -> SystemConfig:
+    base.fusion = base.fusion._replace(**fusion_over)
+    return base
+
+
+def config_fr_iosb_internal_imu() -> SystemConfig:
+    """Livox internal-IMU mode (config_fr_iosb_internal_imu.yaml): identity
+    rotation extrinsic, shifted lever arm; pair with
+    ``io.livox.convert_internal_imu``."""
+    return _livox_variant(config_fr_iosb(), q_lb=(1.0, 0.0, 0.0, 0.0),
+                          t_lb=(-0.05512, -0.02226, 0.02970))
+
+
+def config_fr_iosb_tree() -> SystemConfig:
+    c = _livox_variant(config_fr_iosb(), local_map_width=30, lidar_const=15.0)
+    c.loop_closure.time_thres = 40.0
+    c.loop_closure.local_time_thres = 40.0  # config_fr_iosb_tree.yaml:26
+    c.loop_closure.icp_thres = 0.15
+    c.mapping_interval = 3  # yaml:30
+    return c
+
+
+def config_ka_urban_campus() -> SystemConfig:
+    c = _livox_variant(config_fr_iosb(), lidar_const=15.0, surf_dist_thres=0.08,
+                       max_num_iter=20,  # yaml:15
+                       q_lb=(0.0, 0.0, 1.0, 0.0), t_lb=(-0.05, -0.0202, -0.13))
+    c.livox_features = c.livox_features._replace(surf_thres=0.17)
+    c.odometry = c.odometry._replace(scan_match_cnt=2)
+    c.loop_closure.time_thres = 60.0
+    c.loop_closure.local_time_thres = 60.0  # config_ka_urban_campus.yaml:29
+    c.mapping_interval = 5  # yaml:30
+    return c
+
+
+def config_ka_urban_east() -> SystemConfig:
+    c = _livox_variant(config_fr_iosb(), lidar_const=15.0, surf_dist_thres=0.08,
+                       max_num_iter=20)  # yaml:15
+    c.livox_features = c.livox_features._replace(surf_thres=0.16)
+    c.loop_closure.time_thres = 60.0
+    c.loop_closure.local_time_thres = 60.0  # config_ka_urban_east.yaml:29
+    c.loop_closure.search_radius = 20.0
+    c.loop_closure.icp_thres = 0.15
+    c.mapping_interval = 25  # yaml:30
+    return c
+
+
+def config_ka_urban_schloss_1() -> SystemConfig:
+    c = _livox_variant(config_fr_iosb(), local_map_width=30, lidar_const=15.0,
+                       surf_dist_thres=0.03)
+    c.livox_features = c.livox_features._replace(surf_thres=0.15)
+    c.odometry = c.odometry._replace(scan_match_cnt=2)
+    c.loop_closure.time_thres = 60.0
+    c.loop_closure.local_time_thres = 60.0  # config_ka_urban_schloss_1.yaml:29
+    c.loop_closure.search_radius = 7.0
+    c.loop_closure.icp_thres = 0.15
+    c.mapping_interval = 3  # yaml:30
+    return c
+
+
+def config_ka_urban_schloss_2() -> SystemConfig:
+    c = _livox_variant(config_fr_iosb(), lidar_const=25.0, surf_dist_thres=0.08)
+    c.livox_features = c.livox_features._replace(surf_thres=0.25, edge_thres=3.0)
+    c.loop_closure.time_thres = 60.0
+    c.loop_closure.local_time_thres = 60.0  # config_ka_urban_schloss_2.yaml:29
+    c.loop_closure.search_radius = 7.0
+    c.loop_closure.icp_thres = 0.15
+    c.mapping_interval = 10  # yaml:30
+    return c
+
+
+def config_urban_hk_rot() -> SystemConfig:
+    """ROT 32-line UrbanLoco HK (LiLi-OM-ROT config_urban_hk.yaml)."""
+    c = config_fr_iosb_rot()
+    c.spin_features = c.spin_features._replace(ds_rate=2)
+    c.loop_closure.search_radius = 25.0
+    c.loop_closure.time_thres = 120.0
+    c.mapping_interval = 3  # ROT yaml:31
+    return c
+
+
+def config_utbm_rot() -> SystemConfig:
+    """ROT 32-line UTBM (LiLi-OM-ROT config_utbm.yaml)."""
+    c = config_fr_iosb_rot()
+    c.spin_features = c.spin_features._replace(ds_rate=2)
+    c.fusion = c.fusion._replace(kd_max_radius=1.5)
+    c.imu_noise = ImuNoise(acc_n=18.0, gyr_n=0.0173, acc_w=0.5, gyr_w=0.00025,
+                           init_cov=1e-3)
+    c.loop_closure.search_radius = 25.0
+    c.loop_closure.time_thres = 120.0
+    c.mapping_interval = 4  # ROT yaml:31
+    return c
+
+
+PRESETS = {
+    "fr_iosb": config_fr_iosb,
+    "fr_iosb_internal_imu": config_fr_iosb_internal_imu,
+    "fr_iosb_tree": config_fr_iosb_tree,
+    "ka_urban_campus": config_ka_urban_campus,
+    "ka_urban_east": config_ka_urban_east,
+    "ka_urban_schloss_1": config_ka_urban_schloss_1,
+    "ka_urban_schloss_2": config_ka_urban_schloss_2,
+    "fr_iosb_rot": config_fr_iosb_rot,
+    "urban_hk_rot": config_urban_hk_rot,
+    "utbm_rot": config_utbm_rot,
+    "synthetic": config_synthetic,
+}

@@ -1,5 +1,5 @@
-"""The port's copies of the config NamedTuples and of the ``fr_iosb_rot``
-preset against the JAX package's: same fields, same defaults, same values."""
+"""The port's copies of the config NamedTuples and of every preset against
+the JAX package's: same fields, same defaults, same values."""
 import dataclasses
 
 import pytest
@@ -7,12 +7,14 @@ import pytest
 from lili_om_tpu.models import fusion as JFu
 from lili_om_tpu.models import odometry as JO
 from lili_om_tpu.models import system as JSy
+from lili_om_tpu.ops import features_livox as JL
 from lili_om_tpu.ops import features_spin as JS
 from lili_om_tpu.ops import preintegration as JP
 from lili_om_tpu.utils import config as JC
 from lili_om_tpu_torch.frame import bench_configs
 from lili_om_tpu_torch.models import fusion as TFu
 from lili_om_tpu_torch.models import odometry as TO
+from lili_om_tpu_torch.ops import features_livox as TL
 from lili_om_tpu_torch.ops import features_spin as TS
 from lili_om_tpu_torch.ops import preintegration as TP
 from lili_om_tpu_torch.utils import config as TC
@@ -21,6 +23,7 @@ PAIRS = {
     "OdometryConfig": (JO.OdometryConfig, TO.OdometryConfig),
     "FusionConfig": (JFu.FusionConfig, TFu.FusionConfig),
     "SpinFeatureConfig": (JS.SpinFeatureConfig, TS.SpinFeatureConfig),
+    "LivoxFeatureConfig": (JL.LivoxFeatureConfig, TL.LivoxFeatureConfig),
     "ImuNoise": (JP.ImuNoise, TP.ImuNoise),
 }
 
@@ -76,5 +79,41 @@ def test_bench_configs_match_bench_py():
 
 
 def test_unported_preset_raises():
-    with pytest.raises(NotImplementedError):
-        TC.load_config("fr_iosb")
+    """A name that is no preset raises, as in the JAX package."""
+    for load in (JC.load_config, TC.load_config):
+        with pytest.raises(KeyError):
+            load("no_such_preset")
+
+
+def _as_dict(cfg):
+    """A SystemConfig as {field: plain value}, its sections as dicts."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        out[f.name] = (v._asdict() if hasattr(v, "_fields")
+                       else dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
+    return out
+
+
+@pytest.mark.parametrize("preset", sorted(JC.PRESETS))
+def test_every_preset_field_for_field(preset):
+    assert sorted(TC.PRESETS) == sorted(JC.PRESETS)
+    assert _as_dict(TC.load_config(preset)) == _as_dict(JC.load_config(preset))
+
+
+def test_default_preset_and_overrides():
+    """``load_config()`` is the Livox ``fr_iosb`` preset, as in the JAX
+    package; overrides replace section fields and plain fields, and an
+    unknown key warns and is ignored on both sides."""
+    assert TC.load_config().variant == JC.load_config().variant == "livox"
+    over = {"fusion": {"local_map_width": 12, "bogus": 1},
+            "loop_closure": {"enabled": False, "bogus": 2},
+            "livox_features": {"n_cols": 680}, "mapping_interval": 3}
+    with pytest.warns(UserWarning):
+        j = JC.load_config("fr_iosb", {k: dict(v) if isinstance(v, dict) else v
+                                       for k, v in over.items()})
+    with pytest.warns(UserWarning):
+        t = TC.load_config("fr_iosb", over)
+    assert _as_dict(t) == _as_dict(j)
+    assert (t.fusion.local_map_width, t.livox_features.n_cols, t.loop_closure.enabled,
+            t.mapping_interval) == (12, 680, False, 3)

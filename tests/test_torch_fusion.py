@@ -48,21 +48,45 @@ def inputs():
     return out
 
 
-def _args(d, lib, dtype):
-    """fusion_step's positional inputs for one scan (refl = 0, as bench.py)."""
+def _args(d, lib, dtype, refl=False):
+    """fusion_step's positional inputs for one scan: the curvature channel
+    0 (as bench.py), or with ``refl`` the simulator's reflectivity for each
+    point's range, ×0.1 as the Livox path packs it."""
     if lib is jnp:
         f = lambda a: jnp.asarray(a) if a.dtype == np.bool_ else jnp.asarray(a, dtype)
     else:
         f = lambda a: torch.as_tensor(a) if a.dtype == np.bool_ else torch.as_tensor(a, dtype=dtype)
     sp = d["surf_pts"]
-    return (f(sp), f(d["surf_mask"]), f(np.zeros(sp.shape[0])), f(d["edge_pts"]),
+    r = np.zeros(sp.shape[0])
+    if refl:
+        r = 0.1 * (5.0 + 10.0 / (1.0 + np.linalg.norm(sp, axis=1) / 20.0))
+    return (f(sp), f(d["surf_mask"]), f(r), f(d["edge_pts"]),
             f(d["edge_mask"]), f(d["dts"]), f(d["accs"]), f(d["gyrs"]), f(d["vm"]))
 
 
-def _run(inputs, dtype, carry, rebuild_at=None):
+def _livox_fusion(jf, tf):
+    """The fr_iosb (Livox) fusion section — reflectivity-weighted plane fits,
+    its gates, weights and LM budget — at the same small caps, with the
+    extrinsic of the other cases: these scans are cast without one, and
+    under fr_iosb's 180° yaw the LM loop's stopping test meets near-ties on
+    them (a 1e-4 gap with the reflectivity branch off too)."""
+    from lili_om_tpu.utils.config import load_config
+
+    keep = ("local_map_width", "kf_surf_cap", "kf_edge_cap", "map_surf_cap", "map_edge_cap",
+            "max_num_iter", "imu_cap", "q_lb", "t_lb")
+    lf = load_config("fr_iosb").fusion._replace(**{k: getattr(jf, k) for k in keep})
+    assert lf.use_reflectivity
+    return lf, type(tf)(**lf._asdict())
+
+
+def _run(inputs, dtype, carry, rebuild_at=None, section="fr_iosb_rot"):
     """Both fusion steps over the scans; scan ``rebuild_at`` runs with
-    ``rebuild=True`` (the first keyframe after a loop closure)."""
+    ``rebuild=True`` (the first keyframe after a loop closure). ``section``
+    "fr_iosb" runs the Livox fusion with a nonzero curvature channel."""
     (_, _, jf, jn), (_, _, tf, tn) = small_configs()
+    refl = section == "fr_iosb"
+    if refl:
+        jf, tf = _livox_fusion(jf, tf)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     js = JFu.init_fusion_state(jf, jn, dtype=jdt)
     ts = TFu.init_fusion_state(tf, tn, dtype=tdt, device=CPU)
@@ -72,9 +96,10 @@ def _run(inputs, dtype, carry, rebuild_at=None):
             ts = interop.fusion_state_from_numpy(tree_dict(js), dtype=tdt, device=CPU)
         warm = int(js.kf_count) + 1 < jf.window
         rb = i == rebuild_at
-        js, jo = JFu.fusion_step(js, *_args(d, jnp, jdt), jf, jn, warmup=warm, rebuild=rb)
-        ts, to = TFu.fusion_step(ts, *_args(d, torch, tdt), tf, tn, warmup=warm, rebuild=rb,
-                                 device=CPU)
+        js, jo = JFu.fusion_step(js, *_args(d, jnp, jdt, refl), jf, jn, warmup=warm,
+                                 rebuild=rb)
+        ts, to = TFu.fusion_step(ts, *_args(d, torch, tdt, refl), tf, tn, warmup=warm,
+                                 rebuild=rb, device=CPU)
         outs.append((warm, tree_dict(jo), tree_dict(to)))
     return outs, state_dict(js), state_dict(ts)
 
@@ -95,6 +120,24 @@ def test_fusion_step_matches_jax(inputs, carry):
     for k in ("prior.JtJ", "prior.Jtr0"):
         a, b = jstate.pop(k), tstate.pop(k)
         np.testing.assert_allclose(b, a, rtol=0.0, atol=PRIOR_TOL[carry] * np.abs(a).max(),
+                                   err_msg=k)
+    assert_close_dicts(jstate, tstate, rtol=1e-6, atol=1e-6, what="final state")
+
+
+def test_fusion_step_reflectivity_matches_jax(inputs):
+    """The ``use_reflectivity`` branch of the plane fits (fr_iosb): weights
+    from the curvature channel's differences, the ``reflect_thres`` gate and
+    the ``exp(−Σw)`` score term, with the channel carried through the
+    keyframe ring and the map tables. Free-running float64, tolerances of
+    the free-running case above."""
+    outs, jstate, tstate = _run(inputs, "float64", False, section="fr_iosb")
+    assert int(outs[-1][1]["n_surf_corr"]) > 50
+    assert np.abs(jstate["hist_surf_refl"]).max() > 0.5  # the channel is carried
+    for i, (_, jo, to) in enumerate(outs):
+        assert_close_dicts(jo, to, rtol=1e-6, atol=1e-6, what=f"scan {i}")
+    for k in ("prior.JtJ", "prior.Jtr0"):
+        a, b = jstate.pop(k), tstate.pop(k)
+        np.testing.assert_allclose(b, a, rtol=0.0, atol=PRIOR_TOL[False] * np.abs(a).max(),
                                    err_msg=k)
     assert_close_dicts(jstate, tstate, rtol=1e-6, atol=1e-6, what="final state")
 

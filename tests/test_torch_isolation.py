@@ -64,6 +64,7 @@ def _entry_points():
     from lili_om_tpu_torch.models.odometry import init_state, odometry_step
     from lili_om_tpu_torch.models.pose_graph import init_graph
     from lili_om_tpu_torch.models.system import LiliOmSystem
+    from lili_om_tpu_torch.ops.features_livox import LivoxFeatureConfig, extract_features_livox
     from lili_om_tpu_torch.ops.features_spin import extract_features_spin
 
     feats, odo, fus, noise = bench_configs()
@@ -79,6 +80,9 @@ def _entry_points():
             z(4, dtype=torch.bool), fus, noise),
         "extract_features_spin": lambda: extract_features_spin(
             z((4, 60, 3)), z((4, 60), dtype=torch.bool), z((4, 60)), feats),
+        "extract_features_livox": lambda: extract_features_livox(
+            z((6, 40, 3)), z((6, 40)), z((6, 40), dtype=torch.bool),
+            LivoxFeatureConfig(n_cols=40)),
         "Frame": lambda: Frame(),
         "sim_scans": lambda: sim_scans(1, rings=4, cols=60),
         "LiliOmSystem": lambda: LiliOmSystem(),

@@ -93,3 +93,33 @@ def test_imu_noise_uses_generator():
     clean = TT.simulate_imu(ttr, 0.0, 0.1)
     np.testing.assert_array_equal(npy(a.accs), npy(b.accs))
     assert np.abs(npy(a.accs) - npy(clean.accs)).max() > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_livox_pattern(dtype):
+    """The Horizon-like pattern at its full width (6 × 4000): directions to
+    3e-6 in float32 (the two linspace implementations and the f32 sin/cos
+    round differently), 1e-14 in float64; times and lines the same."""
+    jp = JL.livox_pattern(dtype=getattr(jnp, dtype))
+    tp = TL.livox_pattern(dtype=getattr(torch, dtype))
+    assert tp.dirs.shape == (24000, 3) and tp.dirs.dtype == getattr(torch, dtype)
+    tol = 3e-6 if dtype == "float32" else 1e-14
+    for name, a, b in zip(jp._fields, jp, tp):
+        np.testing.assert_allclose(np.asarray(a, np.float64), npy(b).astype(np.float64),
+                                   atol=tol, err_msg=name)
+
+
+def test_livox_scan_f64(worlds):
+    """A Livox sweep cast from the preset's sensor pose: points, validity
+    and reflectivity as the JAX simulator gives them (f64, as test_scan_f64)."""
+    jw, tw = worlds
+    jtr, ttr = _trajs()
+    t_sl, q_sl = np.array([0.03, -0.02, -0.05]), np.array([0.0, 0.0, 0.0, 1.0])
+    js = JL.simulate_scan(jw, jtr, 0.7, JL.livox_pattern(pts_per_line=680, dtype=jnp.float64),
+                          t_sl=t_sl, q_sl=q_sl)
+    ts = TL.simulate_scan(tw, ttr, 0.7, TL.livox_pattern(pts_per_line=680, dtype=torch.float64),
+                          t_sl=t_sl, q_sl=q_sl)
+    np.testing.assert_array_equal(np.asarray(js.valid), npy(ts.valid))
+    np.testing.assert_array_equal(np.asarray(js.line), npy(ts.line))
+    np.testing.assert_allclose(np.asarray(js.pts), npy(ts.pts), atol=1e-8)
+    np.testing.assert_allclose(np.asarray(js.reflectivity), npy(ts.reflectivity), atol=1e-8)

@@ -14,6 +14,14 @@ one, both in float64 on the CPU, at the sizes of tests/test_system.py.
   the graph after the closure, the corrected window and ring poses and the
   dropped prior agree to 1e-6 (ICP and the suffix solve agree to 1e-9 on
   their own, test_torch_icp.py and test_torch_pose_graph.py).
+* The Livox variant: 9 simulated Horizon sweeps of 6 × 680 points, binned
+  at ``n_cols = 680`` (matched to the density: the Horizon's 4000 columns
+  would starve the extractor), cast from the ``fr_iosb`` preset's sensor
+  pose on the same circle, the preset wired whole (reflectivity-weighted
+  fusion, 15 GN and LM iterations) at tests/test_golden_motion.py's reduced
+  caps. Trajectories, keyframes, graph poses and the archived clouds agree
+  to 1e-6 (measured ≤ 3e-8). The port runs it twice, inline and with
+  ``defer_backend`` + ``process_keyframe``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,15 +34,19 @@ from lili_om_tpu.models.pose_graph import add_node as j_add_node
 from lili_om_tpu.models.system import LiliOmSystem as JSystem
 from lili_om_tpu.models.system import LoopClosureConfig as JLC
 from lili_om_tpu.ops.features_spin import SpinFeatureConfig as JS
+from lili_om_tpu.utils.config import load_config as j_load_config
 from lili_om_tpu_torch.models.fusion import FusionConfig as TF
 from lili_om_tpu_torch.models.odometry import OdometryConfig as TO
 from lili_om_tpu_torch.models.pose_graph import add_node as t_add_node
 from lili_om_tpu_torch.models.system import LiliOmSystem as TSystem
+from lili_om_tpu_torch.models.system import LivoxKeyframePayload
 from lili_om_tpu_torch.models.system import LoopClosureConfig as TLC
 from lili_om_tpu_torch.ops.features_spin import SpinFeatureConfig as TS
-from lili_om_tpu_torch.sim.lidar import simulate_scan, spinning_pattern
+from lili_om_tpu_torch.sim.lidar import livox_pattern, simulate_scan, spinning_pattern
 from lili_om_tpu_torch.sim.trajectory import circle_trajectory, pose_at, simulate_imu
 from lili_om_tpu_torch.sim.world import make_room_world
+from lili_om_tpu_torch.utils.config import load_config as t_load_config
+from lili_om_tpu_torch.utils.math import quat_conj_np, quat_rotate_np
 from test_torch_common import CPU, npy
 
 R, C, PERIOD, N_SCANS = 16, 720, 0.1, 9
@@ -202,3 +214,92 @@ def test_imu_buffer_bulk_push_and_trim():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         TSystem(mesh=object(), device=CPU)
+
+
+# --- the Livox variant ------------------------------------------------------
+
+LIVOX_PTS = 680
+
+
+def _livox_cfgs(load):
+    """The fr_iosb preset at tests/test_golden_motion.py's reduced caps."""
+    c = load("fr_iosb")
+    odo = c.odometry._replace(scan_cap=4096, query_cap=1024, map_cap=8192, frame_cap=1024,
+                              n_recent_frames=10)
+    fus = c.fusion._replace(kf_surf_cap=1024, kf_edge_cap=512, map_surf_cap=8192,
+                            map_edge_cap=1024, local_map_width=12, imu_cap=64)
+    return dict(odo_cfg=odo, fusion_cfg=fus, livox_cfg=c.livox_features._replace(
+        n_cols=LIVOX_PTS), lc_cfg=c.loop_closure, noise=c.imu_noise, graph_capacity=64)
+
+
+@pytest.fixture(scope="module")
+def livox_run():
+    """The JAX system inline, the port inline and the port deferred, over
+    the same sweeps. Returns (jax, port inline, port deferred, payloads)."""
+    kw = _livox_cfgs(t_load_config)
+    fus = kw["fusion_cfg"]
+    q_sl = quat_conj_np(np.asarray(fus.q_lb, float)[None])[0]
+    t_sl = -quat_rotate_np(q_sl[None], np.asarray(fus.t_lb, float)[None])[0]
+    world = make_room_world(dtype=torch.float64, device=CPU)
+    traj = circle_trajectory(radius=8.0, period=40.0)
+    pattern = livox_pattern(pts_per_line=LIVOX_PTS, dtype=torch.float64, device=CPU)
+    imu = simulate_imu(traj, 0.0, N_SCANS * PERIOD + PERIOD, rate=200.0, device=CPU)
+    _, q0 = pose_at(traj, 0.0, device=CPU)
+    js = JSystem(**_livox_cfgs(j_load_config), dtype=jnp.float64)
+    ts = TSystem(**kw, dtype=torch.float64, device=CPU)
+    td = TSystem(**kw, dtype=torch.float64, device=CPU)
+    for s in (js, ts, td):
+        assert s.set_initial_orientation(npy(q0))
+        s.push_imu(npy(imu.stamps), npy(imu.accs), npy(imu.gyrs))
+    payloads = []
+    for k in range(N_SCANS):
+        sc = simulate_scan(world, traj, k * PERIOD, pattern, period=PERIOD, t_sl=t_sl,
+                           q_sl=q_sl)
+        args = (npy(sc.pts), npy(sc.line), npy(sc.rel_time), npy(sc.reflectivity),
+                npy(sc.valid), k * PERIOD)
+        js.process_scan_livox(*args)
+        ts.process_scan_livox(*args)
+        out, payload = td.process_scan_livox(*args, defer_backend=True)
+        assert (payload is not None) == out.is_keyframe
+        if payload is not None:
+            payloads.append(payload)
+            td.process_keyframe(payload, k * PERIOD)
+    return js, ts, td, payloads
+
+
+@pytest.mark.parametrize("which", ["inline", "deferred"])
+def test_livox_run_matches_jax(livox_run, which):
+    js, ts, td, _ = livox_run
+    t = ts if which == "inline" else td
+    assert t.n_frames == js.n_frames == N_SCANS
+    assert t.kf_stamps == js.kf_stamps and len(t.kf_stamps) >= 3
+    np.testing.assert_allclose(np.asarray(t.trajectory), np.asarray(js.trajectory),
+                               rtol=TOL, atol=TOL)
+    n = len(js.kf_stamps)
+    for f in ("t", "q"):
+        np.testing.assert_allclose(npy(getattr(t.graph, f)[:n]),
+                                   np.asarray(getattr(js.graph, f)[:n]), atol=TOL, err_msg=f)
+    for i in range(n):
+        np.testing.assert_allclose(t._kf_cloud_np(i), js._kf_cloud_np(i), atol=TOL)
+    # the reflectivity-weighted fusion matched surfaces on the last keyframe
+    assert int(t.last_fusion_out.n_surf_corr) == int(js.last_fusion_out.n_surf_corr) > 100
+    # the keyframe ring carries the reflectivity channel (0.1·reflectivity)
+    refl = npy(t.fusion_state.hist_surf_refl)[npy(t.fusion_state.hist_surf_mask)]
+    np.testing.assert_allclose(refl, np.asarray(js.fusion_state.hist_surf_refl)[
+        np.asarray(js.fusion_state.hist_surf_mask)], atol=TOL)
+    assert 0.5 < refl.min() and refl.max() < 1.7
+
+
+def test_livox_deferred_payloads(livox_run):
+    """``defer_backend`` hands the backend a LivoxKeyframePayload per
+    keyframe: the downsampled surf cloud with its reflectivity, the edge
+    cloud padded to the keyframe edge capacity, and the full sweep."""
+    js, _, td, payloads = livox_run
+    fus = td.fusion_cfg
+    assert len(payloads) == len(js.kf_stamps)
+    for p in payloads:
+        assert isinstance(p, LivoxKeyframePayload)
+        assert p.surf.shape == (td.odo_cfg.scan_cap, 3) and p.surf_refl.shape == p.surf_mask.shape
+        assert p.edge.shape == (fus.kf_edge_cap, 3) and p.full_pts.shape == (6 * LIVOX_PTS, 3)
+        assert bool(p.surf_mask.any()) and bool(p.edge_mask.any())
+        assert bool((p.surf_refl[p.surf_mask] > 0.0).all())

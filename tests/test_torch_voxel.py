@@ -151,3 +151,54 @@ def test_voxel_downsample_np_matches_jax(scan):
     assert b.shape == a.shape and len(b) < len(pts)
     np.testing.assert_array_equal(b, a)
     assert TV.voxel_downsample_np(pts[:0], 0.4).shape == (0, 3)
+
+
+def _grouped_key_at_i32_max():
+    """A (30-bit voxel key, group) whose grouped mix is ``I32_MAX``, the
+    int32 sort fill of invalid rows: the lowbias32 mix inverted."""
+    M = 0xFFFFFFFF
+
+    def unxorshift(h, s):
+        x = h
+        for _ in range(32 // s + 1):
+            x = h ^ (x >> s)
+        return x
+
+    def unmix(h):
+        h = unxorshift(h, 16)
+        h = (h * pow(0x846CA68B, -1, 2**32)) & M
+        h = unxorshift(h, 15)
+        h = (h * pow(0x7FEB352D, -1, 2**32)) & M
+        return unxorshift(h, 16)
+
+    for g in range(1, 1000):
+        gm = (g * -1640531527) & M
+        key = unmix(unmix(M) ^ gm ^ 0x80000000)
+        if key < 2**30:
+            return key, g
+    raise AssertionError("no key found")
+
+
+@pytest.mark.parametrize("ordered", [False, True])
+def test_grouped_key_at_int32_max_stays_one_voxel(ordered):
+    """A valid voxel whose grouped scramble equals the invalid rows' fill,
+    its points interleaved with invalid rows: the port sorts the invalid
+    rows strictly last, so the voxel stays one segment (the segment ids the
+    segment sum takes stay non-decreasing) and the table stays valid-first.
+    The JAX package sorts it among the invalid rows and splits it (ROADMAP
+    §C)."""
+    key, g = _grouped_key_at_i32_max()
+    cell = np.array([key >> 20, (key >> 10) & 1023, key & 1023], float)
+    assert int(TV._group_mix(TV._scramble(torch.tensor([key], dtype=torch.int32)),
+                             torch.tensor([g]))[0]) == 2**31 - 1
+    pts = np.array([[0.5, 0.5, 0.5], [3.0, 3.0, 3.0], cell + 0.25, [4.0, 4.0, 4.0],
+                    cell + 0.75, [5.0, 5.0, 5.0]])
+    mask = np.array([True, False, True, False, True, False])
+    groups = np.array([0, g, g, g, g, g], np.int32)
+    fn = TV.voxel_downsample_ordered if ordered else TV.voxel_downsample
+    out, m = fn(torch.as_tensor(pts), torch.as_tensor(mask), 1.0, 8,
+                groups=torch.as_tensor(groups))
+    out, m = npy(out), npy(m)
+    assert m.tolist() == [True, True] + [False] * 6
+    got = sorted(map(tuple, out[:2]))
+    np.testing.assert_array_equal(got, sorted([(0.5, 0.5, 0.5), tuple(cell + 0.5)]))
