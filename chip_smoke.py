@@ -29,20 +29,27 @@ Phases, each printing its own line; any failed check exits non-zero:
    front, ``try_loop_closure`` every 10 scans, ``LILI_OM_KNN_PRUNED=1``
    throughout: at least one closure fires (ICP, graph solve, correction),
    the next keyframe rebuilds the fusion maps, every search launches the
-   pruned kernel (B3) and none the count-bounded one, B4 launches, and the
-   corrected keyframes stay near the simulator's; after the lap, each
-   closure attempt's fitness untrimmed and trimmed, and how far its submaps
-   lie from the simulated world's surfaces (with ``--out``, the submaps go
-   to ``icp_attempts.npz`` for ``python3 -m tools.replay_icp``); then B3
-   against the plain version and B1 on the inputs each of its call sites
-   gave it, its bound counting only the pairs of the tiles it scanned;
+   pruned kernel (B3) and none the count-bounded one, each ICP prepares its
+   target map once and then launches one B3 search per iteration, B4
+   launches, and the corrected keyframes stay near the simulator's; after
+   the lap, each closure attempt's fitness untrimmed and trimmed, and how
+   far its submaps lie from the simulated world's surfaces (with ``--out``,
+   the submaps go to ``icp_attempts.npz`` for ``python3 -m
+   tools.replay_icp``); then B3 against the plain version and B1 on the
+   inputs each of its call sites gave it (ICP's prepared map and source
+   order included), timed as the site calls it beside the per-call route,
+   its visits per block against the plain schedule's, its bound counting
+   only the pairs of the tiles it scanned; and B3's map kernels (Morton
+   keys, scatter into tiles) against their plain versions;
 7. Livox phase: ``LiliOmSystem.process_scan_livox`` at the whole ``fr_iosb``
    preset (eigen-patch features, reflectivity-weighted fusion) on the same
    lap with Horizon sweeps at full width (6 × 4000 points, ``n_cols``
    4000), closures every 10 scans, the pruned switch unset: odometry
    against the simulated sensor poses, the keyframe RMSE, surf matches on
    ≥ 90 % of the scans, B1 and B4 launched and B3 not, the closure attempts
-   and their fitness;
+   and their fitness; then B1 against its plain version on the inputs each
+   of its call sites on the lap gave it (ICP k=5 and k=1, odometry,
+   fusion);
 8. B4 at every call site of the three paths (the first call of each from
    the recorded scan on): ids non-decreasing, two launches bit-identical,
    equal to the plain version on a CPU copy in float32 and float64, its
@@ -101,6 +108,10 @@ GT_TOL_M, GT_TOL_RAD = 0.25, 0.05
 REPLACES = {"knn_counted": "lili_om_tpu/ops/knn_pallas.py:234",
             "knn_dense": "lili_om_tpu/ops/knn_pallas.py:64",
             "knn_pruned": "lili_om_tpu/ops/knn_pallas.py:426",
+            # B3's map kernels do the work of knn_pallas_pruned's pre-pass
+            # around its Pallas call (Morton keys and sorts, padding, tile boxes)
+            "pruned_keys": "lili_om_tpu/ops/knn_pallas.py:533-567",
+            "pruned_scatter": "lili_om_tpu/ops/knn_pallas.py:533-567",
             "segred": "lili_om_tpu/ops/segred_pallas.py:39"}
 SOURCE = "lili_om_tpu_torch/csrc/knn.cu"
 SOURCE_PRUNED = "lili_om_tpu_torch/csrc/knn_pruned.cu"
@@ -240,18 +251,23 @@ class Recorder(Patch):
     """Wraps the kernel wrapper ``K.<name>`` for a run: every call launches
     the kernel once, as unwrapped, and while ``armed`` the inputs of the
     first call at each call site (Q, P, k) are copied for the kernel checks
-    (one copy per site, so a timed run pays for a few copies only)."""
+    (one copy per site, so a timed run pays for a few copies only). B3's map
+    may come prepared (a ``K.PrunedMap``, with the caller's query order)."""
 
     def __init__(self, name: str, armed: bool = True):
         super().__init__(K, name)
         self.armed, self.seen = armed, {}
 
-    def __call__(self, queries, points, k=5, p_mask=None, q_mask=None):
-        key = (queries.shape[0], points.shape[0], k)
+    def __call__(self, queries, points, k=5, p_mask=None, q_mask=None, **kw):
+        prepared = isinstance(points, K.PrunedMap)
+        key = (queries.shape[0], points.n_points if prepared else points.shape[0], k)
         if self.armed and key not in self.seen:
-            self.seen[key] = tuple(None if x is None else x.clone()
-                                   for x in (queries, points, p_mask, q_mask))
-        return self.orig(queries, points, k, p_mask, q_mask)
+            copy = lambda x: None if x is None else x.clone()
+            pts = (K.PrunedMap(*(copy(x) for x in points[:5]), *points[5:]) if prepared
+                   else copy(points))
+            self.seen[key] = (copy(queries), pts, copy(p_mask), copy(q_mask),
+                              copy(kw.get("q_order")))
+        return self.orig(queries, points, k, p_mask, q_mask, **kw)
 
 
 class IcpSpy(Patch):
@@ -329,7 +345,7 @@ def library_knn(queries, points, k, p_mask, q_mask):
 
 def compare_kernel(name, site, inputs, launches, k=5):
     """Kernel against the plain version on the same inputs; timings; bound."""
-    q, p, pm, qm = inputs
+    q, p, pm, qm = inputs[:4]
     counted = name == "knn_counted"
     wrapper = K.knn_counted_cuda if counted else K.knn_dense_cuda
     d_k, i_k = wrapper(q, p, k, pm, qm)
@@ -451,8 +467,10 @@ def system_phase():
     prev = os.environ.get("LILI_OM_KNN_PRUNED")
     os.environ["LILI_OM_KNN_PRUNED"] = "1"
     try:
-        with (Recorder("knn_pruned_cuda", armed=False) as rec, IcpSpy() as icp,
-              FusionSpy() as fus, SegRecorder(armed=False) as seg):
+        # B3 is reached through knn_auto (odometry, fusion) and through
+        # K.searcher (ICP's prepared route)
+        with (Recorder("knn_pruned_cuda", armed=False) as rec,
+              IcpSpy() as icp, FusionSpy() as fus, SegRecorder(armed=False) as seg):
             sync()
             reset_counts()
             for k, (img, valid, rel) in enumerate(scans):
@@ -497,7 +515,8 @@ def system_phase():
              "kf_max": float(kf_err.max()), "n_kf": n,
              "attempts": icp_attempts(icp.calls, sys_.lc_cfg, make_room_world(device=DEV),
                                       t0w, q0w)}
-    return sys_, host_ms, counts, rec.seen, facts, icp.calls, (seg_counts, seg.seen)
+    return (sys_, host_ms, counts, rec.seen, facts, icp.calls,
+            (seg_counts, seg.seen))
 
 
 def surface_distance(world: World, pts):
@@ -582,9 +601,18 @@ def check_system(sys_, host_ms, counts, facts):
           "system: no loop factor in the graph")
     check(any(rb for _, rb, _ in facts["rebuilds"]),
           f"system: no keyframe after a closure ran with rebuild=True {facts['rebuilds']}")
-    check(site(cap, cap, 5) >= lc.icp_iters * n_icp and site(cap, cap, 1) >= n_icp,
+    check(site(cap, cap, 5) == lc.icp_iters * n_icp and site(cap, cap, 1) == n_icp,
           f"system: ICP launches {site(cap, cap, 5)} (k=5) / {site(cap, cap, 1)} (k=1) for "
           f"{n_icp} ICP runs of {lc.icp_iters} iterations")
+    # each ICP prepares its target once (one scatter) and orders its source
+    # once (the keys of both clouds): every iteration is one search launch
+    n_maps = counts.get(("pruned_scatter", 0, cap, 0), 0)
+    n_keys = counts.get(("pruned_keys", 0, cap, 0), 0)
+    print(f"[system] ICP map preparations {n_maps}, Morton key launches {n_keys} for "
+          f"{n_icp} ICP runs")
+    check(n_maps == n_icp and n_keys == 2 * n_icp,
+          f"system: {n_maps} map preparations / {n_keys} key launches at the ICP site for "
+          f"{n_icp} ICP runs (one map and one source order per run)")
     odo, fus = sys_.odo_cfg, sys_.fusion_cfg
     W = fus.window
     check(site(odo.query_cap, odo.map_cap, odo.k) >= len(host_ms),
@@ -610,7 +638,7 @@ def livox_phase():
     points, ``n_cols`` 4000), ``try_loop_closure`` every 10 scans and the
     time gate cut as in the spin system phase; ``LILI_OM_KNN_PRUNED`` unset.
     Returns (system, per-scan host ms, kNN counts, segment-sum counts,
-    recorded B4 inputs, facts)."""
+    recorded B4 inputs, facts, recorded B1 inputs)."""
     cfg = load_config("fr_iosb")
     lc = dataclasses.replace(cfg.loop_closure, time_thres=SYS_LAP_S / 3.0)
     t0 = time.perf_counter()
@@ -631,11 +659,12 @@ def livox_phase():
     fired, host_ms, lc_ms, odo = [], [], [], []
     prev = os.environ.pop("LILI_OM_KNN_PRUNED", None)
     try:
-        with SegRecorder(armed=False) as seg, IcpSpy() as icp:
+        with (SegRecorder(armed=False) as seg, IcpSpy() as icp,
+              Recorder("knn_counted_cuda", armed=False) as rec):
             sync()
             reset_counts()
             for k, (pts, line, ratio, refl, valid) in enumerate(scans):
-                seg.armed = k >= SYS_RECORD_FROM
+                seg.armed = rec.armed = k >= SYS_RECORD_FROM
                 icp.scan = k
                 t1 = time.perf_counter()
                 out = sys_.process_scan_livox(pts, line, ratio, refl, valid, k * 0.1)
@@ -671,7 +700,7 @@ def livox_phase():
              "acquired": float(np.mean([c > 0 for c in corr[2:]])), "n_corr": corr,
              "attempts": icp_attempts(icp.calls, sys_.lc_cfg, make_room_world(device=DEV),
                                       t0w, q0w)}
-    return sys_, host_ms, counts, seg_counts, seg.seen, facts
+    return sys_, host_ms, counts, seg_counts, seg.seen, facts, rec.seen
 
 
 def check_livox(sys_, host_ms, counts, seg_counts, facts):
@@ -767,32 +796,73 @@ def compare_segred(phase, key, inputs, launches):
             "shape": [N, C, M], "rows_kept": int(kept.numel()), "longest_segment": longest}
 
 
+def map_points(pmap):
+    """The raw map (points, mask) a ``K.PrunedMap`` was prepared from: its
+    sorted rows put back at their original indices."""
+    n = pmap.n_points
+    rows = pmap.p_idx[:n].long()
+    pts = torch.empty((n, 3), dtype=pmap.pts4.dtype, device=pmap.pts4.device)
+    pts[rows] = pmap.pts4[:n, :3]
+    mask = torch.empty((n,), dtype=torch.bool, device=pts.device)
+    mask[rows] = pmap.pts4[:n, 3] == 0.0
+    return pts.contiguous(), mask
+
+
 def compare_pruned(site, inputs, k, launches):
     """B3 against the plain version and against B1 on the same inputs (all
-    equal bit for bit); the share of (block, tile) pairs it skipped; its
-    times beside B1's, the plain version's, cdist+topk and the bound."""
-    q, p, pm, qm = inputs
+    equal bit for bit), through the per-call route (map and query order
+    prepared in the call) and the prepared route (as ICP calls it: the map
+    prepared once, the source's order given); its visits per block against
+    the plain schedule's on the same map and order; the share of (block,
+    tile) pairs it skipped; its times as the site calls it and by the other
+    route, the kernel alone, the map preparation, B1, the plain version,
+    cdist+topk and the bound."""
+    q, pts, pm, qm, q_order = inputs
+    prepared = isinstance(pts, K.PrunedMap)
+    p, pm = map_points(pts) if prepared else (pts, pm)
+    fresh = K.pruned_map(p, pm)
+    for a, b in zip(fresh[:5], K.pruned_map_plain(p, pm)[:5]):
+        check(bool(torch.equal(a, b)), f"B3 {site}: the prepared map differs from its plain "
+                                       "version")
+    if prepared:
+        for a, b in zip(pts[:5], fresh[:5]):
+            check(bool(torch.equal(a, b)), f"B3 {site}: the recorded map differs from a fresh one")
+        pmap, order = pts, q_order
+    else:
+        pmap, order = fresh, K.query_order(q, qm)
+        check(bool(torch.equal(order, K.morton_order_plain(q, qm))),
+              f"B3 {site}: the query order differs from its plain version")
     d_k, i_k = K.knn_pruned_cuda(q, p, k, pm, qm)
+    d_r, i_r = K.knn_pruned_cuda(q, pmap, k, q_mask=qm, q_order=order)
     d_p, i_p = K.knn(q, p, k=k, q_mask=qm, p_mask=pm)
     d_1, i_1 = K.knn_counted_cuda(q, p, k, pm, qm)
     sync()
     fin = torch.isfinite(d_p)
-    err = float((d_k[fin] - d_p[fin]).abs().max()) if bool(fin.any()) else 0.0
-    check(bool(torch.equal(d_k, d_p)) and bool(torch.equal(i_k, i_p)),
-          f"B3 {site}: differs from the plain version (max {err:.3e}, "
-          f"{int((i_k != i_p).sum())} indices)")
-    check(bool(torch.equal(d_k, d_1)) and bool(torch.equal(i_k, i_1)),
-          f"B3 {site}: differs from B1")
-    prep = K.pruned_kernel_inputs(q, p, k, pm, qm)
-    _, _, visited = K.launch_pruned_kernel(prep, k)
-    possible = int(prep.q_any.sum()) * int(prep.p_any.sum())
-    skipped = 1.0 - int(visited.sum()) / possible if possible else 0.0
-    pairs = scanned_pairs(prep, visited)
-    ms = cuda_ms(lambda: K.knn_pruned_cuda(q, p, k, pm, qm), 20)
-    kernel_ms = cuda_ms(lambda: K.launch_pruned_kernel(prep, k), 20)
+    err = max(float((d[fin] - d_p[fin]).abs().max()) if bool(fin.any()) else 0.0
+              for d in (d_k, d_r))
+    for route, d, i in (("per-call", d_k, i_k), ("prepared", d_r, i_r)):
+        check(bool(torch.equal(d, d_p)) and bool(torch.equal(i, i_p)),
+              f"B3 {site} ({route} route): differs from the plain version (max {err:.3e}, "
+              f"{int((i != i_p).sum())} indices)")
+        check(bool(torch.equal(d, d_1)) and bool(torch.equal(i, i_1)),
+              f"B3 {site} ({route} route): differs from B1")
+    _, _, visited = K.launch_pruned_kernel(q, pmap, qm, order, k)
+    _, _, visited_plain = K.knn_pruned_schedule(q, pmap, k, q_mask=qm, q_order=order)
+    sync()
+    check(bool(torch.equal(visited, visited_plain)),
+          f"B3 {site}: tiles scanned per block differ from the plain schedule's "
+          f"({int(visited.sum())} vs {int(visited_plain.sum())})")
+    skipped = K.pruned_skipped_share(visited, pmap)
+    pairs = scanned_pairs(q, pmap, qm, order, visited)
+    raw_ms = cuda_ms(lambda: K.knn_pruned_cuda(q, p, k, pm, qm), 20)
+    prep_ms = cuda_ms(lambda: K.knn_pruned_cuda(q, pmap, k, q_mask=qm, q_order=order), 20)
+    kernel_ms = cuda_ms(lambda: K.launch_pruned_kernel(q, pmap, qm, order, k), 20)
+    map_ms = cuda_ms(lambda: K.pruned_map(p, pm), 20)
+    order_ms = cuda_ms(lambda: K.query_order(q, qm), 20)
     b1_ms = cuda_ms(lambda: K.knn_counted_cuda(q, p, k, pm, qm), 20)
     plain_ms = cuda_ms(lambda: K.knn(q, p, k=k, q_mask=qm, p_mask=pm), 5)
     lib_ms = cuda_ms(lambda: library_knn(q, p, k, pm, qm), 5)
+    ms = prep_ms if prepared else raw_ms
     Q, P = q.shape[0], p.shape[0]
     nq = Q if qm is None else int(qm.sum())
     np_ = P if pm is None else int(pm.sum())
@@ -802,29 +872,100 @@ def compare_pruned(site, inputs, k, launches):
     t_bytes = (12 * Q + 12 * P + (0 if qm is None else Q) + (0 if pm is None else P)
                + Q * k * (4 + 8)) / PEAK_BYTES
     bound_ms = 1e3 * max(t_ops, t_bytes)
+    active = visited[visited > 0].float()
+    active_plain = visited_plain[visited_plain > 0].float()
+    vis = lambda v: (float(v.mean()) if v.numel() else 0.0, int(v.max()) if v.numel() else 0)
     print(f"[kernel] B3 {site}: valid q {nq}/{Q} p {np_}/{P}; skipped {100 * skipped:.1f} % "
-          f"of (block, tile) pairs; (valid query, valid point) pairs scanned {pairs} of "
-          f"{nq * np_}; wrapper {ms:.4f} ms kernel {kernel_ms:.4f} ms; B1 "
-          f"{b1_ms:.4f} ms; plain {plain_ms:.4f} ms; cdist+topk {lib_ms:.4f} ms; bound "
-          f"{bound_ms:.5f} ms; launches in the system phase {launches}")
+          f"of (block, tile) pairs; tiles scanned per active block mean/max "
+          f"{vis(active)[0]:.2f}/{vis(active)[1]} (plain schedule "
+          f"{vis(active_plain)[0]:.2f}/{vis(active_plain)[1]}) of {pmap.tile_any.shape[0]}; "
+          f"(valid query, valid point) pairs scanned {pairs} of {nq * np_}; as called "
+          f"({'prepared' if prepared else 'per-call'} route) {ms:.4f} ms; per-call route "
+          f"{raw_ms:.4f} ms; prepared route {prep_ms:.4f} ms; kernel {kernel_ms:.4f} ms; map "
+          f"preparation {map_ms:.4f} ms; query order {order_ms:.4f} ms; B1 {b1_ms:.4f} ms; "
+          f"plain {plain_ms:.4f} ms; cdist+topk {lib_ms:.4f} ms; bound {bound_ms:.5f} ms; "
+          f"launches in the system phase {launches}")
     return {"name": f"knn_pruned[{site}]", "route": "cuda", "source": SOURCE_PRUNED,
             "replaces": REPLACES["knn_pruned"], "launches": launches, "max_abs_err": err,
             "ms": ms, "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms, "b1_ms": b1_ms, "skipped_share": skipped,
+            "library_ms": lib_ms, "as_called": "prepared" if prepared else "per-call",
+            "per_call_route_ms": raw_ms, "prepared_route_ms": prep_ms, "map_ms": map_ms,
+            "query_order_ms": order_ms, "b1_ms": b1_ms, "skipped_share": skipped,
+            "visited_mean": vis(active)[0], "visited_max": vis(active)[1],
+            "visited_plain_mean": vis(active_plain)[0], "visited_plain_max": vis(active_plain)[1],
             "pairs_scanned": pairs, "shape": [Q, P], "valid": [nq, np_]}
 
 
-def scanned_pairs(prep, visited) -> int:
+def compare_pruned_map(what, pts, mask, launches, scatter_launches=None):
+    """B3's map kernels on one cloud: the Morton keys kernel, and for a map
+    (``scatter_launches`` given) the whole preparation with its scatter
+    kernel, each against its plain version (equal bit for bit), with its
+    times and its byte bound. Returns the JSON rows."""
+    n, dev = pts.shape[0], pts.device
+    keys = K.morton_keys_cuda(pts, mask)
+    keys_plain = K.morton_keys_plain(pts, mask)
+    sync()
+    check(bool(torch.equal(keys, keys_plain)), f"B3 keys {what}: differ from the plain version "
+                                               f"at {int((keys != keys_plain).sum())} rows")
+    out = torch.empty_like(keys)
+    rows = []
+    ms = cuda_ms(lambda: K.morton_keys_cuda(pts, mask), 20)
+    kernel_ms = cuda_ms(lambda: K.launch_keys_kernel(pts, mask, out), 20)
+    plain_ms = cuda_ms(lambda: K.morton_keys_plain(pts, mask), 20)
+    # bytes: the points and the mask read once, the keys written; 6 f32
+    # operations a row
+    t_bytes = (12 * n + (0 if mask is None else n) + 8 * n) / PEAK_BYTES
+    t_ops = 6 * n / PEAK_F32_FLOPS
+    print(f"[kernel] B3 keys {what}: {n} rows; wrapper {ms:.4f} ms kernel {kernel_ms:.4f} ms "
+          f"plain {plain_ms:.4f} ms bound {1e3 * max(t_bytes, t_ops):.5f} ms; launches of this "
+          f"shape in the system phase {launches}")
+    rows.append({"name": f"pruned_keys[{what}]", "route": "cuda", "source": SOURCE_PRUNED,
+                 "replaces": REPLACES["pruned_keys"],
+                 "launches": launches, "max_abs_err": 0.0, "ms": ms,
+                 "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
+                 "bound_ms": 1e3 * max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": None, "shape": [n]})
+    if scatter_launches is None:
+        return rows
+    pmap = K.pruned_map_cuda(pts, mask)
+    sync()
+    for a, b in zip(pmap[:5], K.pruned_map_plain(pts, mask)[:5]):
+        check(bool(torch.equal(a, b)), f"B3 scatter {what}: the map differs from its plain "
+                                       "version")
+    order = torch.sort(keys).values
+    ms = cuda_ms(lambda: K.pruned_map_cuda(pts, mask), 20)
+    kernel_ms = cuda_ms(lambda: K.launch_scatter_kernel(pts, order, pmap), 20)
+    plain_ms = cuda_ms(lambda: K.pruned_map_plain(pts, mask), 20)
+    nj = pmap.tile_any.shape[0]
+    # bytes: sorted keys and points read, float4 rows, indices and boxes
+    # written; one compare a coordinate for the boxes
+    t_bytes = (8 * n + 12 * n + 20 * nj * pmap.tile + 25 * nj) / PEAK_BYTES
+    t_ops = 6 * n / PEAK_F32_FLOPS
+    print(f"[kernel] B3 scatter {what}: {n} rows into {nj} tiles; map preparation (keys, sort, "
+          f"scatter) {ms:.4f} ms; scatter kernel {kernel_ms:.4f} ms; plain preparation "
+          f"{plain_ms:.4f} ms; bound {1e3 * max(t_bytes, t_ops):.5f} ms; launches of this shape "
+          f"in the system phase {scatter_launches}")
+    rows.append({"name": f"pruned_scatter[{what}]", "route": "cuda", "source": SOURCE_PRUNED,
+                 "replaces": REPLACES["pruned_scatter"],
+                 "launches": scatter_launches, "max_abs_err": 0.0, "ms": ms,
+                 "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
+                 "bound_ms": 1e3 * max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": None, "shape": [n, nj]})
+    return rows
+
+
+def scanned_pairs(q, pmap, q_mask, q_order, visited) -> int:
     """(valid query, valid map point) pairs the pruned kernel compared: block
     b scanned the first ``visited[b]`` tiles of its order."""
-    ni, nj = prep.order.shape
-    q_ok = torch.zeros((ni * K.PRUNED_BLOCK,), dtype=torch.int64, device=prep.qs.device)
-    q_ok[:prep.q_ok.shape[0]] = prep.q_ok.to(torch.int64)
-    nq_block = q_ok.reshape(ni, K.PRUNED_BLOCK).sum(dim=1)
-    np_tile = (prep.pts4[:, 3] == 0.0).reshape(nj, K.PRUNED_TILE).sum(dim=1)
+    plan = K.pruned_plan(q, pmap, q_mask, q_order)
+    nj = pmap.tile_any.shape[0]
+    nq_block = plan.ok.sum(dim=1)
+    np_tile = (pmap.pts4[:, 3] == 0.0).reshape(nj, pmap.tile).sum(dim=1)
     scanned = torch.arange(nj, device=visited.device)[None, :] < visited[:, None].long()
-    per_block = torch.where(scanned, np_tile[prep.order.long()], 0).sum(dim=1)
+    per_block = torch.where(scanned, np_tile[plan.order], 0).sum(dim=1)
     return int((nq_block * per_block).sum())
 
 
@@ -979,10 +1120,25 @@ def main(argv=None) -> int:
     names = {(cap, cap): "icp", (odo.query_cap, odo.map_cap): "odometry",
              (fus.window * fus.kf_surf_cap, fus.map_surf_cap): "fusion_surf",
              (fus.window * fus.kf_edge_cap, fus.map_edge_cap): "fusion_edge"}
+    map_rows = []
     for (q, p, k), inputs in sorted(sys_inputs.items()):
         site = f"{names.get((q, p), 'site')}_k{k}_{q}x{p}"
         kernels.append(compare_pruned(site, inputs, k,
                                       sys_counts.get(("knn_pruned", q, p, k), 0)))
+        # the map kernels, once per cloud shape (the counts are per shape)
+        qs, pts, pm, qm = inputs[:4]
+        pts, pm = map_points(pts) if isinstance(pts, K.PrunedMap) else (pts, pm)
+        done = {r["shape"][0] for r in map_rows if r["name"].startswith("pruned_keys")}
+        for what, cloud, mask, n, is_map in ((f"{names.get((q, p), 'site')}_map", pts, pm, p,
+                                              True),
+                                             (f"{names.get((q, p), 'site')}_queries", qs, qm, q,
+                                              False)):
+            if n not in done:
+                done.add(n)
+                map_rows += compare_pruned_map(
+                    f"{what}_{n}", cloud, mask, sys_counts.get(("pruned_keys", 0, n, 0), 0),
+                    sys_counts.get(("pruned_scatter", 0, n, 0), 0) if is_map else None)
+    kernels += map_rows
     check({n.split("[")[1].split("_k")[0] for n in (x["name"] for x in kernels)
            if n.startswith("knn_pruned")} >= {"icp", "odometry", "fusion_surf", "fusion_edge"},
           "B3: a call site was not recorded")
@@ -991,10 +1147,24 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 7. Livox system phase
-    lvx, lvx_ms, lvx_counts, lvx_seg_counts, lvx_seg, lvx_facts = livox_phase()
+    lvx, lvx_ms, lvx_counts, lvx_seg_counts, lvx_seg, lvx_facts, lvx_inputs = livox_phase()
     check_livox(lvx, lvx_ms, lvx_counts, lvx_seg_counts, lvx_facts)
     lvx_rejects = lvx.lc_rejects
-    del lvx
+    # B1 at each call site of the Livox lap (ICP runs B1 there)
+    cap = lvx.lc_cfg.submap_cap
+    odo, fus = lvx.odo_cfg, lvx.fusion_cfg
+    names = {(cap, cap): "icp", (odo.query_cap, odo.map_cap): "odometry",
+             (fus.window * fus.kf_surf_cap, fus.map_surf_cap): "fusion_surf",
+             (fus.window * fus.kf_edge_cap, fus.map_edge_cap): "fusion_edge"}
+    for (q, p, k), inputs in sorted(lvx_inputs.items()):
+        kernels.append(compare_kernel(
+            "knn_counted", f"livox_{names.get((q, p), 'site')}_k{k}_{q}x{p}", inputs,
+            lvx_counts.get(("knn_counted", q, p, k), 0), k=k))
+    check({n.split("[livox_")[1].split("_k")[0] for n in (x["name"] for x in kernels)
+           if n.startswith("knn_counted[livox_")} >= {"icp", "odometry", "fusion_surf",
+                                                       "fusion_edge"},
+          "B1: a call site of the Livox lap was not recorded")
+    del lvx, lvx_inputs
 
     # 8. B4 against its plain version at each call site of the three paths
     for phase, seen, seg_counts in (("main", main_seg, main_seg_counts),

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -72,6 +74,13 @@ def build(names=None, verbose: bool = False) -> dict:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on the CUDA ``device`` (a
+    tensor's, so its index is set), for a launch. The call that PyTorch's
+    own generated kernels use: it skips building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def load(name: str) -> ctypes.CDLL:

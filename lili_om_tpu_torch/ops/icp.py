@@ -11,6 +11,11 @@ source points), over the best ``trim`` fraction when ``trim`` < 1.
 The searches pass the source mask as their query mask: rows of padding
 sources come back as (+inf, 0) instead of a distance, which changes no
 valid row and lets the kernels skip blocks of padding.
+
+The searches go through :func:`~lili_om_tpu_torch.ops.knn.searcher`: where
+they take the pruned kernel B3, it prepares the target and orders the
+source once per call, so each of the ``n_iters + 1`` searches is one kernel
+launch.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import torch
 
 from ..factors.lidar import PlaneFactorBatch, huber_weight, plane_residual
 from ..ops.fitting import eig3_symmetric
-from ..ops.knn import knn_auto
+from ..ops.knn import searcher
 from ..solver.gn import gn_update
 from ..utils.math import exp_so3, quat_mul, quat_normalize, quat_rotate
 
@@ -42,10 +47,11 @@ def icp_point_to_plane(src_pts, src_mask, tgt_pts, tgt_mask, t_init, q_init,
     points (Trimmed-ICP); ``trim=1.0`` is PCL's untrimmed score, which
     occlusion shadows inflate on a partial-overlap revisit."""
     dtype = src_pts.dtype
+    search = searcher(tgt_pts, tgt_mask, src_pts, src_mask)
     t, q = t_init, q_init
     for _ in range(n_iters):
         pw = quat_rotate(q[None, :], src_pts) + t[None, :]
-        d2, idx = knn_auto(pw, tgt_pts, k=k, p_mask=tgt_mask, q_mask=src_mask)
+        d2, idx = search(pw, k)
         nbrs = tgt_pts[idx]
         nn_ok = d2[:, 0] < max_corr_dist ** 2
         # centred covariance plane fit (smallest eigenvector)
@@ -67,7 +73,7 @@ def icp_point_to_plane(src_pts, src_mask, tgt_pts, tgt_mask, t_init, q_init,
         q = quat_normalize(quat_mul(q, exp_so3(delta[3:6])))
 
     pw = quat_rotate(q[None, :], src_pts) + t[None, :]
-    d2, _ = knn_auto(pw, tgt_pts, k=1, p_mask=tgt_mask, q_mask=src_mask)
+    d2, _ = search(pw, 1)
     d2 = d2[:, 0]
     ok = src_mask & (d2 < max_corr_dist ** 2)
     n = torch.sum(ok.to(torch.int32))

@@ -7,10 +7,13 @@
 * :func:`knn_counted_cuda` / :func:`knn_dense_cuda` launch the hand-written
   CUDA kernel (``csrc/knn.cu``), the counterparts of the Pallas kernels
   ``knn_pallas_counted`` and ``knn_pallas``.
-* :func:`knn_pruned_cuda` launches the Morton-sorted, bound-pruned kernel
-  (``csrc/knn_pruned.cu``), the counterpart of ``knn_pallas_pruned``;
-  :func:`knn_pruned_schedule` is its plain version for the CPU tests: the
-  same pre-pass, tile order and skip test.
+* :func:`knn_pruned_cuda` launches the Morton-sorted, bound-pruned search
+  (``csrc/knn_pruned.cu``), the counterpart of ``knn_pallas_pruned``, on a
+  map that :func:`pruned_map` prepares once (two kernels and one sort) and
+  queries in an order that :func:`query_order` gives once (:func:`searcher`
+  does both once for ICP's searches); :func:`knn_pruned_schedule` is its plain version for the
+  CPU tests: the same prepared map, block layout, tile order and skip test,
+  and the same visits per block.
 * :func:`knn_auto`, :func:`world_knn_auto` and :func:`knn_pair_auto` are what
   the pipeline calls: on a CUDA tensor they launch a kernel (or raise), on
   a CPU tensor they run the plain version. ``LILI_OM_KNN_PRUNED=1``, the JAX
@@ -25,11 +28,13 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import os
 from typing import NamedTuple
 
 import torch
 
+from .. import cuda_build
 from ..device import use_kernel
 from ..utils.math import quat_rotate
 
@@ -98,32 +103,45 @@ def knn(queries: torch.Tensor, points: torch.Tensor, k: int = 5,
     return best_d, best_i
 
 
-def _check(queries, points, k, p_mask, q_mask):
-    if queries.device.type != "cuda" or points.device != queries.device:
-        raise ValueError("the CUDA kNN needs queries and points on one CUDA device")
-    if queries.dtype != torch.float32 or points.dtype != torch.float32:
-        raise TypeError("the CUDA kNN takes float32 queries and points only")
-    if queries.dim() != 2 or queries.shape[1] != 3 or points.dim() != 2 \
-            or points.shape[1] != 3:
-        raise ValueError("queries and points must be (Q,3) and (P,3)")
-    if not queries.is_contiguous():
-        raise ValueError("queries must be contiguous")
+def _check_cloud(pts, mask, what: str, device=None, contiguous: bool = True):
+    """A cloud a kernel reads: float32 (n, 3) on the CUDA device ``device``
+    (default its own), contiguous where the kernel reads it in place, its
+    mask a contiguous bool (n,) there."""
+    device = pts.device if device is None else device
+    if pts.device.type != "cuda" or pts.device != device:
+        raise ValueError(f"the CUDA kNN needs {what} on the queries' CUDA device")
+    if pts.dtype != torch.float32:
+        raise TypeError(f"the CUDA kNN takes float32 {what} only")
+    if pts.dim() != 2 or pts.shape[1] != 3 or (contiguous and not pts.is_contiguous()):
+        raise ValueError(f"{what} must be a {'contiguous ' if contiguous else ''}(n, 3) "
+                         "tensor")
+    if mask is not None and (mask.dtype != torch.bool or mask.shape != (pts.shape[0],)
+                             or mask.device != device or not mask.is_contiguous()):
+        raise ValueError(f"the mask of {what} must be a contiguous bool "
+                         f"({pts.shape[0]},) tensor on the queries' device")
+
+
+def _check_k(k: int):
     if not 1 <= k <= 8:
         raise ValueError("the CUDA kNN supports 1 ≤ k ≤ 8")
-    for m, n, what in ((p_mask, points.shape[0], "p_mask"),
-                       (q_mask, queries.shape[0], "q_mask")):
-        if m is not None and (m.dtype != torch.bool or m.shape != (n,)
-                              or m.device != queries.device
-                              or not m.is_contiguous()):
-            raise ValueError(f"{what} must be a contiguous bool ({n},) tensor "
-                             "on the queries' device")
 
 
+def _check(queries, points, k, p_mask, q_mask):
+    _check_cloud(queries, q_mask, "queries")
+    # kernel_inputs copies the points into float4 rows
+    _check_cloud(points, p_mask, "points", queries.device, contiguous=False)
+    _check_k(k)
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+@functools.cache
 def _library():
-    from ..cuda_build import load
-
-    lib = load("knn")
-    fn = lib.lili_knn_f32
+    """The B1/B2 kernel's ctypes function, bound once."""
+    fn = cuda_build.load("knn").lili_knn_f32
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
     return fn
@@ -158,9 +176,8 @@ def launch_kernel(queries, pts4, q_mask, n_pts, k: int):
                      None if q_mask is None else q_mask.data_ptr(),
                      None if n_pts is None else n_pts.data_ptr(),
                      P, Q, k, out_d.data_ptr(), out_i.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"knn kernel launch failed: CUDA error {err}")
+                     cuda_build.stream_ptr(dev))
+    _raise_on(err, "knn")
     return out_d, out_i
 
 
@@ -189,12 +206,13 @@ def knn_dense_cuda(queries, points, k: int = 5, p_mask=None, q_mask=None):
 
 # --- B3: Morton-sorted, bound-pruned search ------------------------------
 
-# queries per block and map points per tile of csrc/knn_pruned.cu (kBlock,
-# kTile); the pre-pass lays its inputs out for them
-PRUNED_BLOCK, PRUNED_TILE = 64, 1024
+# queries per block, map points per tile and the most tiles of
+# csrc/knn_pruned.cu (kQB, kTile, kMaxTiles); the map is laid out for them
+PRUNED_BLOCK, PRUNED_TILE, PRUNED_MAX_TILES = 32, 512, 2048
 # a tile is skipped only when lb·(1−2⁻¹¹) > the block's worst distance
 PRUNE_MARGIN = 1.0 - 2.0 ** -11
 _I32_MAX = 2**31 - 1
+_ROW_BITS = 0xFFFFFFFF
 
 
 def pruned_enabled() -> bool:
@@ -236,61 +254,176 @@ def block_bounds(pts: torch.Tensor, valid: torch.Tensor, block: int):
             v.any(dim=2).any(dim=1))
 
 
-class PrunedInputs(NamedTuple):
-    """What the pruned kernel reads (see ``csrc/knn_pruned.cu``)."""
+class PrunedMap(NamedTuple):
+    """A map prepared for the pruned search (:func:`pruned_map`), built once
+    per map and searched any number of times: the counterpart of
+    ``knn_pallas_pruned``'s ``sorted_p`` promise."""
 
-    qs: torch.Tensor  # (Q,3) Morton-sorted queries
-    q_ok: torch.Tensor  # (Q,) bool, sorted
-    q_pos: torch.Tensor  # (Q,) int64 original row of each sorted query
-    pts4: torch.Tensor  # (n_tiles·tile, 4) sorted map, lane 3: 0 valid / +inf
-    p_idx: torch.Tensor  # (n_tiles·tile,) int32 original map index
-    order: torch.Tensor  # (n_blocks, n_tiles) int32, ascending bound
-    lb: torch.Tensor  # (n_blocks, n_tiles) the bounds in that order
-    q_any: torch.Tensor  # (n_blocks,) block has a valid query
-    p_any: torch.Tensor  # (n_tiles,) tile has a valid point
+    pts4: torch.Tensor  # (n_tiles·tile, 4) Morton-sorted map, lane 3: 0 valid / +inf
+    p_idx: torch.Tensor  # (n_tiles·tile,) int32 original row of each sorted row
+    tile_lo: torch.Tensor  # (n_tiles, 3) each tile's valid box (+inf without one)
+    tile_hi: torch.Tensor  # (n_tiles, 3) (−inf without one)
+    tile_any: torch.Tensor  # (n_tiles,) bool, the tile has a valid point
+    n_points: int  # rows of the original map
+    tile: int  # points per tile
 
 
-def pruned_inputs(queries, points, p_mask=None, q_mask=None,
-                  q_block: int = PRUNED_BLOCK, tile_p: int = PRUNED_TILE) -> PrunedInputs:
-    """The pruned search's pre-pass, in torch ops with no host sync: stable
-    Morton sorts (invalid rows last), the map padded to whole tiles, box
-    lower bounds ``lb[i, j]`` between query block i and map tile j summed
-    as ((gx²+gy²)+gz²) in the kernel's order, and each block's tiles sorted
-    by bound."""
-    Q, P, dev, dtype = queries.shape[0], points.shape[0], queries.device, queries.dtype
-    q_valid = (torch.ones((Q,), dtype=torch.bool, device=dev) if q_mask is None
-               else q_mask)
-    p_valid = (torch.ones((P,), dtype=torch.bool, device=dev) if p_mask is None
-               else p_mask)
-    _, q_pos = torch.sort(torch.where(q_valid, morton30(queries, q_valid), _I32_MAX),
-                          stable=True)
-    _, p_pos = torch.sort(torch.where(p_valid, morton30(points, p_valid), _I32_MAX),
-                          stable=True)
-    qs, q_ok = queries[q_pos], q_valid[q_pos]
-
-    ni, nj = -(-Q // q_block), -(-P // tile_p)
-    Pp = nj * tile_p
+def pruned_map_plain(points, p_mask=None, tile: int = PRUNED_TILE) -> PrunedMap:
+    """:func:`pruned_map` in torch ops: the map sorted on its Morton keys,
+    padded to whole tiles of masked rows, and each tile's valid box."""
+    P, dev, dtype = points.shape[0], points.device, points.dtype
+    pos = morton_order_plain(points, p_mask)
+    Pp = -(-P // tile) * tile
     pts4 = torch.zeros((Pp, 4), dtype=dtype, device=dev)
-    pts4[:P, :3] = points[p_pos]
     pts4[:, 3] = float("inf")
-    pts4[:P, 3] = torch.where(p_valid[p_pos], 0.0, float("inf"))
+    pts4[:P, :3] = points[pos]
+    if p_mask is None:
+        pts4[:P, 3] = 0.0
+    else:
+        pts4[:P, 3] = torch.where(p_mask[pos], 0.0, float("inf"))
     p_idx = torch.zeros((Pp,), dtype=torch.int32, device=dev)
-    p_idx[:P] = p_pos.to(torch.int32)
+    p_idx[:P] = pos.to(torch.int32)
+    lo, hi, any_ = block_bounds(pts4[:, :3], pts4[:, 3] == 0.0, tile)
+    return PrunedMap(pts4, p_idx, lo, hi, any_, P, tile)
 
-    q_pad = torch.zeros((ni * q_block, 3), dtype=dtype, device=dev)
-    q_pad[:Q] = qs
-    ok_pad = torch.zeros((ni * q_block,), dtype=torch.bool, device=dev)
-    ok_pad[:Q] = q_ok
-    qlo, qhi, q_any = block_bounds(q_pad, ok_pad, q_block)
-    plo, phi, p_any = block_bounds(pts4[:, :3], pts4[:, 3] == 0.0, tile_p)
-    gap = torch.clamp(torch.maximum(qlo[:, None] - phi[None], plo[None] - qhi[:, None]),
-                      min=0.0)
+
+@functools.cache
+def _pruned_library() -> dict:
+    """The pruned kernels' ctypes functions, bound once."""
+    lib = cuda_build.load("knn_pruned")
+    if (lib.lili_knn_pruned_block(), lib.lili_knn_pruned_tile(),
+            lib.lili_knn_pruned_max_tiles()) != (PRUNED_BLOCK, PRUNED_TILE, PRUNED_MAX_TILES):
+        raise RuntimeError("csrc/knn_pruned.cu block/tile sizes differ from ops/knn.py")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for name, args in (("keys", [ptr, ptr, i32, ptr, ptr]),
+                       ("scatter", [ptr, ptr, i32, i32] + [ptr] * 6),
+                       ("f32", [ptr] * 3 + [i32] + [ptr] * 5 + [i32, i32] + [ptr] * 4)):
+        fn = getattr(lib, f"lili_knn_pruned_{name}")
+        fn.restype, fn.argtypes = i32, args
+        fns[name] = fn
+    return fns
+
+
+def launch_keys_kernel(pts, valid, keys):
+    """One launch of the keys kernel into ``keys`` (n,) int64."""
+    _raise_on(_pruned_library()["keys"](
+        pts.data_ptr(), None if valid is None else valid.data_ptr(), pts.shape[0],
+        keys.data_ptr(), cuda_build.stream_ptr(pts.device)), "pruned keys")
+    return keys
+
+
+def morton_keys_cuda(pts, valid=None) -> torch.Tensor:
+    """The keys kernel: (n,) int64 ``(morton30 << 32) | row`` over the valid
+    box, ``(INT32_MAX << 32) | row`` for an invalid row. Every key is
+    unique, so one ``torch.sort`` of them gives the stable Morton order
+    (the row in the low 32 bits)."""
+    _check_cloud(pts, valid, "points")
+    keys = launch_keys_kernel(pts, valid, torch.empty((pts.shape[0],), dtype=torch.int64,
+                                                      device=pts.device))
+    LAUNCHES["pruned_keys", 0, pts.shape[0], 0] += 1
+    return keys
+
+
+def morton_keys_plain(pts, valid=None) -> torch.Tensor:
+    """:func:`morton_keys_cuda` in torch ops."""
+    n = pts.shape[0]
+    if valid is None:
+        valid = torch.ones((n,), dtype=torch.bool, device=pts.device)
+    key = torch.where(valid, morton30(pts, valid).to(torch.int64), _I32_MAX)
+    return (key << 32) | torch.arange(n, device=pts.device)
+
+
+def morton_order_plain(pts, valid=None) -> torch.Tensor:
+    """(n,) int64 rows in stable Morton order over the valid box, invalid
+    rows last: the keys sorted, their rows kept (as on the card)."""
+    return torch.sort(morton_keys_plain(pts, valid)).values & _ROW_BITS
+
+
+def launch_scatter_kernel(points, sorted_keys, pmap: PrunedMap) -> PrunedMap:
+    """One launch of the scatter kernel into the tensors of ``pmap``."""
+    _raise_on(_pruned_library()["scatter"](
+        points.data_ptr(), sorted_keys.data_ptr(), points.shape[0], pmap.tile_any.shape[0],
+        *(t.data_ptr() for t in pmap[:5]), cuda_build.stream_ptr(points.device)),
+        "pruned map scatter")
+    return pmap
+
+
+def pruned_map_cuda(points, p_mask=None) -> PrunedMap:
+    """:func:`pruned_map` on the card in three launches: the keys kernel, one
+    ``torch.sort`` of the keys, and the scatter kernel, which writes the
+    sorted map as float4 tiles and each tile's box."""
+    P, dev = points.shape[0], points.device
+    nj = -(-P // PRUNED_TILE)
+    if nj > PRUNED_MAX_TILES:
+        raise ValueError(f"the pruned kNN takes at most {PRUNED_MAX_TILES * PRUNED_TILE} "
+                         f"map points, got {P}")
+    order = torch.sort(morton_keys_cuda(points, p_mask)).values
+    Pp = nj * PRUNED_TILE
+    pmap = launch_scatter_kernel(points, order, PrunedMap(
+        torch.empty((Pp, 4), dtype=torch.float32, device=dev),
+        torch.empty((Pp,), dtype=torch.int32, device=dev),
+        torch.empty((nj, 3), dtype=torch.float32, device=dev),
+        torch.empty((nj, 3), dtype=torch.float32, device=dev),
+        torch.empty((nj,), dtype=torch.bool, device=dev), P, PRUNED_TILE))
+    LAUNCHES["pruned_scatter", 0, P, 0] += 1
+    return pmap
+
+
+def pruned_map(points, p_mask=None) -> PrunedMap:
+    """The map prepared for :func:`knn_pruned_cuda`, once per map: sorted
+    on a 30-bit Morton key over its valid box (stable, masked rows last),
+    padded to whole 512-point tiles as float4 rows with the mask in lane 3,
+    each row's original index beside it, and each tile's valid box. The
+    kernels on a CUDA tensor, torch ops on a CPU one (the same bits)."""
+    if use_kernel(points):
+        return pruned_map_cuda(points, p_mask)
+    return pruned_map_plain(points, p_mask)
+
+
+def query_order(queries, q_mask=None) -> torch.Tensor:
+    """(Q,) int64 permutation: the queries' stable Morton order over their
+    valid box, invalid queries last — the order in which the pruned search
+    groups them into blocks. Any order gives the same result; a compact one
+    prunes more. The keys kernel and one sort on a CUDA tensor."""
+    if use_kernel(queries):
+        return torch.sort(morton_keys_cuda(queries, q_mask)).values & _ROW_BITS
+    return morton_order_plain(queries, q_mask)
+
+
+class PrunedPlan(NamedTuple):
+    """The walk of each query block, as the kernel lays it out."""
+
+    qs: torch.Tensor  # (n_blocks, q_block, 3) the block's queries
+    ok: torch.Tensor  # (n_blocks, q_block) valid query
+    order: torch.Tensor  # (n_blocks, n_tiles) int64 tiles nearest-first
+    lb: torch.Tensor  # (n_blocks, n_tiles) their box lower bounds
+    rows: torch.Tensor  # (Q,) int64 original row of each walk position
+
+
+def pruned_plan(queries, pmap: PrunedMap, q_mask=None, q_order=None,
+                q_block: int = PRUNED_BLOCK) -> PrunedPlan:
+    """The kernel's per-block preparation in torch ops: the queries in walk
+    order cut into blocks, each block's valid box, its bound against every
+    tile box summed as ((gx²+gy²)+gz²) in the kernel's order (+inf for a
+    block without a valid query or a tile without a valid point), and the
+    tiles ranked by (lb, tile id)."""
+    Q, dev, dtype = queries.shape[0], queries.device, queries.dtype
+    rows = (morton_order_plain(queries, q_mask) if q_order is None
+            else q_order & _ROW_BITS)
+    ni = -(-Q // q_block)
+    qs = torch.zeros((ni * q_block, 3), dtype=dtype, device=dev)
+    qs[:Q] = queries[rows]
+    ok = torch.zeros((ni * q_block,), dtype=torch.bool, device=dev)
+    ok[:Q] = True if q_mask is None else q_mask[rows]
+    qlo, qhi, q_any = block_bounds(qs, ok, q_block)
+    gap = torch.clamp(torch.maximum(qlo[:, None] - pmap.tile_hi[None],
+                                    pmap.tile_lo[None] - qhi[:, None]), min=0.0)
     lb = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) + gap[..., 2] * gap[..., 2]
-    lb = torch.where(q_any[:, None] & p_any[None, :], lb, float("inf"))
+    lb = torch.where(q_any[:, None] & pmap.tile_any[None, :], lb, float("inf"))
     order = torch.argsort(lb, dim=1, stable=True)
-    return PrunedInputs(qs.contiguous(), q_ok.contiguous(), q_pos, pts4, p_idx,
-                        order.to(torch.int32).contiguous(),
-                        torch.gather(lb, 1, order).contiguous(), q_any, p_any)
+    return PrunedPlan(qs.reshape(ni, q_block, 3), ok.reshape(ni, q_block), order,
+                      torch.gather(lb, 1, order), rows)
 
 
 def _sq_dist(qx, qy, qz, p):
@@ -304,36 +437,36 @@ def _sq_dist(qx, qy, qz, p):
 
 
 def knn_pruned_schedule(queries, points, k: int = 5, p_mask=None, q_mask=None,
-                        q_block: int = PRUNED_BLOCK, tile_p: int = PRUNED_TILE):
-    """The pruned kernel's plain version (CPU tests): the same pre-pass, each
-    query block walking its tiles nearest-first and stopping at the kernel's
-    skip test, the top-k kept by (d², original index). Equals :func:`knn`
-    bit for bit. Returns (d², idx, share of (valid block, valid tile) pairs
-    skipped)."""
-    prep = pruned_inputs(queries, points, p_mask, q_mask, q_block, tile_p)
+                        q_order=None, q_block: int = PRUNED_BLOCK, tile_p: int = PRUNED_TILE):
+    """The pruned kernel's plain version (CPU tests, and the card's yardstick
+    for its visits): the same prepared map (``points`` as a
+    :class:`PrunedMap`, or raw points prepared here with tiles of
+    ``tile_p``), the same query order (``q_order``, or the queries' own
+    Morton order), each query block walking its tiles nearest-first and
+    stopping at the kernel's skip test, the top-k kept by (d², original
+    index). Equals :func:`knn` bit for bit. Returns (d², idx, tiles scanned
+    per query block (int32))."""
+    pmap = points if isinstance(points, PrunedMap) else pruned_map_plain(points, p_mask, tile_p)
+    plan = pruned_plan(queries, pmap, q_mask, q_order, q_block)
     Q, dev, dtype = queries.shape[0], queries.device, queries.dtype
-    ni, nj = prep.order.shape
+    ni, nj = plan.order.shape
     inf = float("inf")
-    qs = torch.zeros((ni * q_block, 3), dtype=dtype, device=dev)
-    qs[:Q] = prep.qs
-    ok = torch.zeros((ni * q_block,), dtype=torch.bool, device=dev)
-    ok[:Q] = prep.q_ok
-    qs, ok = qs.reshape(ni, q_block, 1, 3), ok.reshape(ni, q_block)
-    tiles = prep.pts4.reshape(nj, tile_p, 4)
-    tile_idx = prep.p_idx.reshape(nj, tile_p).to(torch.int64)
+    qs = plan.qs[:, :, None, :]
+    tiles = pmap.pts4.reshape(nj, pmap.tile, 4)
+    tile_idx = pmap.p_idx.reshape(nj, pmap.tile).to(torch.int64)
     best_d = torch.full((ni, q_block, k), inf, dtype=dtype, device=dev)
     best_i = torch.zeros((ni, q_block, k), dtype=torch.int64, device=dev)
     alive = torch.ones((ni,), dtype=torch.bool, device=dev)
-    visits = torch.zeros((), dtype=torch.int64, device=dev)
+    visited = torch.zeros((ni,), dtype=torch.int32, device=dev)
     for t in range(nj):
-        worst = torch.where(ok, best_d[..., k - 1], -inf).amax(dim=1)
-        b = prep.lb[:, t]
+        worst = torch.where(plan.ok, best_d[..., k - 1], -inf).amax(dim=1)
+        b = plan.lb[:, t]
         alive = alive & (b < inf) & ~(b * PRUNE_MARGIN > worst)
         if not bool(alive.any()):
             break
-        tid = prep.order[:, t].to(torch.int64)
+        tid = plan.order[:, t]
         d = _sq_dist(qs[..., 0], qs[..., 1], qs[..., 2], tiles[tid][:, None])
-        d = torch.where(ok[..., None], d, inf)
+        d = torch.where(plan.ok[..., None], d, inf)
         cat_d = torch.cat([best_d, d], dim=-1)
         cat_i = torch.cat([best_i, tile_idx[tid][:, None].expand(-1, q_block, -1)], dim=-1)
         o = torch.argsort(cat_i, dim=-1, stable=True)  # then by d: (d, idx) order
@@ -342,60 +475,82 @@ def knn_pruned_schedule(queries, points, k: int = 5, p_mask=None, q_mask=None,
         keep = alive[:, None, None]
         best_d = torch.where(keep, torch.gather(cat_d, -1, o), best_d)
         best_i = torch.where(keep, torch.gather(cat_i, -1, o), best_i)
-        visits = visits + alive.sum()
+        visited += alive.to(torch.int32)
     d_out = torch.empty((Q, k), dtype=dtype, device=dev)
     i_out = torch.empty((Q, k), dtype=torch.int64, device=dev)
-    d_out[prep.q_pos] = best_d.reshape(-1, k)[:Q]
-    i_out[prep.q_pos] = best_i.reshape(-1, k)[:Q]
+    d_out[plan.rows] = best_d.reshape(-1, k)[:Q]
+    i_out[plan.rows] = best_i.reshape(-1, k)[:Q]
     i_out = torch.where(torch.isfinite(d_out), i_out, 0)
-    possible = int(prep.q_any.sum()) * int(prep.p_any.sum())
-    return d_out, i_out, (1.0 - int(visits) / possible if possible else 0.0)
+    return d_out, i_out, visited
 
 
-def _pruned_library():
-    from ..cuda_build import load
-
-    lib = load("knn_pruned")
-    if (lib.lili_knn_pruned_block(), lib.lili_knn_pruned_tile()) != (PRUNED_BLOCK,
-                                                                     PRUNED_TILE):
-        raise RuntimeError("csrc/knn_pruned.cu block/tile sizes differ from ops/knn.py")
-    fn = lib.lili_knn_pruned_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-    return fn
+def pruned_skipped_share(visited: torch.Tensor, pmap: PrunedMap) -> float:
+    """Share of the (block with a valid query, tile with a valid point) pairs
+    that a walk skipped. A block with a valid query scans at least its
+    first tile when the map has a valid one, so such blocks are those with
+    a visit."""
+    possible = int((visited > 0).sum()) * int(pmap.tile_any.sum())
+    return 1.0 - int(visited.sum()) / possible if possible else 0.0
 
 
-def pruned_kernel_inputs(queries, points, k: int = 5, p_mask=None, q_mask=None):
-    """Check the arguments (as the other kernels do) and run the pre-pass."""
-    _check(queries, points, k, p_mask, q_mask)
-    return pruned_inputs(queries, points, p_mask, q_mask)
+def _check_pruned(queries, pmap: PrunedMap, k: int, q_mask, q_order):
+    _check_cloud(queries, q_mask, "queries")
+    if pmap.pts4.device != queries.device or pmap.tile != PRUNED_TILE:
+        raise ValueError("the map must be prepared by pruned_map on the queries' device")
+    if pmap.tile_any.shape[0] > PRUNED_MAX_TILES:
+        raise ValueError(f"the pruned kNN takes at most {PRUNED_MAX_TILES} tiles")
+    _check_k(k)
+    if q_order is not None and (q_order.dtype != torch.int64
+                                or q_order.shape != (queries.shape[0],)
+                                or q_order.device != queries.device
+                                or not q_order.is_contiguous()):
+        raise ValueError("q_order must be a contiguous int64 (Q,) tensor on the queries' "
+                         "device")
 
 
-def launch_pruned_kernel(prep: PrunedInputs, k: int):
-    """One launch on the current stream; allocates the outputs only.
-    Returns (d², idx, tiles scanned per query block)."""
-    Q, dev = prep.qs.shape[0], prep.qs.device
-    ni, nj = prep.order.shape
+def launch_pruned_kernel(queries, pmap: PrunedMap, q_mask, q_order, k: int):
+    """One launch of the search on the current stream; allocates the outputs
+    only. ``q_order``: (Q,) int64 whose low 32 bits give the original row
+    of each walk position (a permutation, or sorted keys). Returns (d²,
+    idx, tiles scanned per query block)."""
+    Q, dev = queries.shape[0], queries.device
     out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int64, device=dev)
-    visited = torch.empty((ni,), dtype=torch.int32, device=dev)
-    err = _pruned_library()(prep.qs.data_ptr(), prep.q_ok.data_ptr(), prep.q_pos.data_ptr(),
-                            prep.pts4.data_ptr(), prep.p_idx.data_ptr(),
-                            prep.order.data_ptr(), prep.lb.data_ptr(), Q, nj, k,
-                            out_d.data_ptr(), out_i.data_ptr(), visited.data_ptr(),
-                            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"pruned knn kernel launch failed: CUDA error {err}")
+    visited = torch.empty((-(-Q // PRUNED_BLOCK),), dtype=torch.int32, device=dev)
+    _raise_on(_pruned_library()["f32"](
+        queries.data_ptr(), None if q_mask is None else q_mask.data_ptr(), q_order.data_ptr(),
+        Q, pmap.pts4.data_ptr(), pmap.p_idx.data_ptr(), pmap.tile_lo.data_ptr(),
+        pmap.tile_hi.data_ptr(), pmap.tile_any.data_ptr(), pmap.tile_any.shape[0], k,
+        out_d.data_ptr(), out_i.data_ptr(), visited.data_ptr(),
+        cuda_build.stream_ptr(dev)), "pruned knn")
     return out_d, out_i, visited
 
 
-def knn_pruned_cuda(queries, points, k: int = 5, p_mask=None, q_mask=None):
-    """The pruned kernel (replaces ``knn_pallas_pruned``); same contract as
-    :func:`knn_counted_cuda`, same result bit for bit."""
-    out_d, out_i, _ = launch_pruned_kernel(
-        pruned_kernel_inputs(queries, points, k, p_mask, q_mask), k)
-    LAUNCHES["knn_pruned", queries.shape[0], points.shape[0], k] += 1
+def knn_pruned_cuda(queries, points, k: int = 5, p_mask=None, q_mask=None, q_order=None):
+    """The pruned search (replaces ``knn_pallas_pruned``); same contract as
+    :func:`knn_counted_cuda`, same result bit for bit. ``points`` is the
+    map as (P, 3) points with ``p_mask``, prepared here, or a
+    :class:`PrunedMap` from :func:`pruned_map` (its mask inside). The
+    queries are walked in ``q_order`` (from :func:`query_order`), or in
+    their own Morton order, found here (the keys kernel and one sort). With
+    both prepared, a search is one launch."""
+    if isinstance(points, PrunedMap):
+        if p_mask is not None:
+            raise ValueError("a PrunedMap carries its mask: pass p_mask=None")
+        pmap = points
+    else:
+        pmap = pruned_map_cuda(points, p_mask)
+    _check_pruned(queries, pmap, k, q_mask, q_order)
+    if q_order is None:
+        q_order = torch.sort(morton_keys_cuda(queries, q_mask)).values
+    out_d, out_i, _ = launch_pruned_kernel(queries, pmap, q_mask, q_order, k)
+    LAUNCHES["knn_pruned", queries.shape[0], pmap.n_points, k] += 1
     return out_d, out_i
+
+
+def _takes_pruned(queries) -> bool:
+    """Whether a search of ``queries`` takes the pruned kernel."""
+    return use_kernel(queries) and pruned_enabled()
 
 
 def knn_auto(queries, points, k: int = 5, p_mask=None, q_mask=None):
@@ -403,15 +558,28 @@ def knn_auto(queries, points, k: int = 5, p_mask=None, q_mask=None):
     one under ``LILI_OM_KNN_PRUNED=1``, else count-bounded when a mask is
     given and P ≤ 65536 and dense otherwise, as the JAX dispatch picks its
     Pallas kernels — and the plain version for CPU tensors."""
+    if _takes_pruned(queries):
+        return knn_pruned_cuda(queries, points, k, p_mask, q_mask)
     if use_kernel(queries):
-        if pruned_enabled():
-            return knn_pruned_cuda(queries, points, k, p_mask, q_mask)
         if points.shape[0] <= COUNTED_MAX_P and (p_mask is not None or q_mask is not None):
             return knn_counted_cuda(queries, points, k, p_mask, q_mask)
         return knn_dense_cuda(queries, points, k, p_mask, q_mask)
     if queries.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kNN for device {queries.device}")
     return knn(queries, points, k=k, q_mask=q_mask, p_mask=p_mask)
+
+
+def searcher(points, p_mask, queries, q_mask):
+    """``search(pw, k)``: :func:`knn_auto` of a moving copy ``pw`` of
+    ``queries`` (rows and mask kept) against one fixed map, as ICP searches.
+    Where the search takes the pruned kernel (the switch read once, here),
+    the map is prepared and the queries' Morton order taken once, in their
+    own frame (a rigid motion keeps Morton neighbours close; any order is
+    exact, only the pruning depends on it), so each search is one launch."""
+    if _takes_pruned(queries):
+        pmap, order = pruned_map(points, p_mask), query_order(queries, q_mask)
+        return lambda pw, k: knn_pruned_cuda(pw, pmap, k, q_mask=q_mask, q_order=order)
+    return lambda pw, k: knn_auto(pw, points, k=k, p_mask=p_mask, q_mask=q_mask)
 
 
 def world_knn_auto(t, q, scan_q, points, k: int = 5, p_mask=None, q_mask=None):

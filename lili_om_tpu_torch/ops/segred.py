@@ -6,11 +6,15 @@ downsample and voxel-table merge (``ops/voxel.py``).
   ``index_add_`` into one extra row that takes the dropped rows. On the CPU
   it adds each segment's rows in row order.
 * :func:`segment_sum_sorted_cuda` launches the hand-written CUDA kernel
-  ``csrc/segred.cu``, the counterpart of ``segment_sum_sorted_pallas``: one
-  thread per (segment, channel) finds its rows by binary search and adds
-  them in row order, so the result is deterministic and equals the plain
-  version on the CPU bit for bit (``index_add_`` on the card uses atomics
-  and rounds in a run-dependent order).
+  ``csrc/segred.cu``, the counterpart of ``segment_sum_sorted_pallas``: each
+  block owns 256 / C consecutive segments, two warps find its rows with a
+  32-way search, a pass over the rows writes each segment's start and end,
+  and one thread per (segment, channel) adds its rows, staged in shared
+  memory, in row order, so the result is
+  deterministic and equals the plain version on the CPU bit for bit
+  (``index_add_`` on the card uses atomics and rounds in a run-dependent
+  order). :func:`segment_sum_sorted_schedule` mirrors that schedule in
+  torch for the CPU tests.
 * :func:`segment_sum_auto` is what ``ops/voxel.py`` calls: the kernel for a
   CUDA tensor, float32 and float64 alike, the plain version for a CPU one.
   The JAX dispatcher of the same name keeps XLA's scatter by default
@@ -18,23 +22,25 @@ downsample and voxel-table merge (``ops/voxel.py``).
   (segred_pallas.py:97-104); that measurement says nothing about this card,
   and here the kernel is the one path on CUDA, with no switch.
 
-Contract (as the JAX kernel's): ``seg_id`` (N,) int64 non-decreasing,
-``payload`` (N, C); rows with ``seg_id >= num_out`` are dropped; the result
-is (num_out, C), a segment without rows reads 0. It holds at every caller
-in ``ops/voxel.py``: ``voxel_downsample``, ``voxel_downsample_ordered``
-(the run sums and the merge of the runs) and ``merge_voxel_entries`` each
-take the ids as a ``cumsum`` of segment starts over rows sorted by key (the
-runs: over the scan order itself), with the invalid rows sorted strictly
-last, and clamp the rows past the capacity to the overflow id ``num_out``,
-which the sum drops.
+Contract (as the JAX kernel's): ``seg_id`` (N,) int64 non-decreasing and
+non-negative, ``payload`` (N, C); rows with ``seg_id >= num_out`` are
+dropped; the result is (num_out, C), a segment without rows reads 0. It
+holds at every caller in ``ops/voxel.py``: ``voxel_downsample``,
+``voxel_downsample_ordered`` (the run sums and the merge of the runs) and
+``merge_voxel_entries`` each take the ids as a ``cumsum`` of segment starts
+over rows sorted by key (the runs: over the scan order itself), with the
+invalid rows sorted strictly last, and clamp the rows past the capacity to
+the overflow id ``num_out``, which the sum drops.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import torch
 
+from .. import cuda_build
 from ..device import use_kernel
 
 # kernel launches since the last reset_launch_counts(), keyed by
@@ -59,15 +65,72 @@ def segment_sum_sorted_plain(payload: torch.Tensor, seg_id: torch.Tensor,
     return out.index_add_(0, torch.clamp(seg_id, max=num_out), payload)[:num_out]
 
 
-def _library(dtype):
-    from ..cuda_build import load
+# threads per block of csrc/segred.cu (kThreads): a block owns
+# BLOCK_THREADS // C segments and passes over its rows in chunks of
+# BLOCK_THREADS; the schedule's plain mirror walks the same blocks and chunks
+BLOCK_THREADS = 256
 
-    fn = getattr(load("segred"), "lili_segred_f32" if dtype == torch.float32
-                 else "lili_segred_f64")
+
+@functools.cache
+def _library(dtype):
+    """The kernel's ctypes function for ``dtype``, bound once."""
+    lib = cuda_build.load("segred")
+    if lib.lili_segred_block_threads() != BLOCK_THREADS:
+        raise RuntimeError("csrc/segred.cu threads per block differ from ops/segred.py")
+    fn = getattr(lib, "lili_segred_f32" if dtype == torch.float32 else "lili_segred_f64")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
     return fn
+
+
+def _warp_lower_bound(ids: list, s: int, width: int = 32) -> int:
+    """First row whose id is ≥ ``s``, found as the kernel's warp finds it:
+    each round probes the last row of ``width`` equal runs of the range and
+    keeps the first run whose probe is ≥ s."""
+    lo, hi = 0, len(ids)
+    while lo < hi:
+        step = -(-(hi - lo) // width)
+        hits = [ids[min(lo + (i + 1) * step - 1, hi - 1)] >= s for i in range(width)]
+        if not any(hits):
+            return hi
+        f = hits.index(True)
+        if step == 1:
+            return lo + f
+        lo, hi = lo + f * step, min(lo + (f + 1) * step - 1, hi - 1)
+    return lo
+
+
+def segment_sum_sorted_schedule(payload: torch.Tensor, seg_id: torch.Tensor, num_out: int,
+                                threads: int = BLOCK_THREADS) -> torch.Tensor:
+    """The kernel's schedule in torch (CPU tests): per block of
+    ``threads // C`` segments, its rows by the warp search, each segment's
+    start and end from neighbour comparisons in chunks of ``threads``
+    rows, then each segment's rows added in row order from 0 (the kernel
+    stages them in shared memory first, which leaves the order as it is)."""
+    segs_per_block, chunk = threads // payload.shape[1], threads
+    ids = seg_id.tolist()
+    out = torch.zeros((num_out,) + payload.shape[1:], dtype=payload.dtype)
+    for s0 in range(0, num_out, segs_per_block):
+        s1 = min(s0 + segs_per_block, num_out)
+        lo, hi = _warp_lower_bound(ids, s0), _warp_lower_bound(ids, s1)
+        start = torch.zeros(s1 - s0, dtype=torch.int64)
+        end = torch.zeros(s1 - s0, dtype=torch.int64)
+        for c0 in range(lo, hi, chunk):
+            r = torch.arange(c0, min(c0 + chunk, hi))
+            sid = seg_id[r]
+            first = (r == lo) | (sid != seg_id[torch.clamp(r - 1, min=0)])
+            last = (r == hi - 1) | (sid != seg_id[torch.clamp(r + 1, max=hi - 1)])
+            start[sid[first] - s0] = r[first]
+            end[sid[last] - s0] = r[last] + 1
+        n_rows = end - start
+        acc = out[s0:s1]
+        for off in range(int(n_rows.max())):
+            take = off < n_rows
+            acc = torch.where(take[:, None], acc + payload[torch.where(take, start + off, 0)],
+                              acc)
+        out[s0:s1] = acc
+    return out
 
 
 def _check(payload, seg_id, num_out):
@@ -83,13 +146,15 @@ def _check(payload, seg_id, num_out):
         raise ValueError("payload and seg_id must be contiguous")
     if num_out < 0:
         raise ValueError("num_out must be ≥ 0")
+    if not 1 <= payload.shape[1] <= BLOCK_THREADS:
+        raise ValueError(f"the CUDA segment sum takes 1 to {BLOCK_THREADS} channels")
 
 
 def launch_kernel(payload, seg_id, num_out: int, out: torch.Tensor):
     """One launch on the current stream into ``out`` (num_out, C)."""
     err = _library(payload.dtype)(payload.data_ptr(), seg_id.data_ptr(), payload.shape[0],
                                   payload.shape[1], num_out, out.data_ptr(),
-                                  torch.cuda.current_stream(payload.device).cuda_stream)
+                                  cuda_build.stream_ptr(payload.device))
     if err != 0:
         raise RuntimeError(f"segred kernel launch failed: CUDA error {err}")
     return out

@@ -7,6 +7,10 @@ the same exact 5-NN sets (the float64 distances differ in the last bits —
 the JAX kNN expands ‖q‖²+‖p‖²−2q·p around the map centroid — but no two
 candidates of these clouds lie that close), so the transforms and scores
 differ by rounding only.
+
+The pruned route (B3 with the target prepared once) is held against the
+plain route bit for bit on the CPU, with the dispatch and the launch routed
+to the kernel's plain schedule.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +19,8 @@ import torch
 
 from lili_om_tpu.ops.icp import icp_point_to_plane as jicp
 from lili_om_tpu.utils.math import pose_inverse, quat_normalize, quat_rotate
+from lili_om_tpu_torch.ops import icp as icp_mod
+from lili_om_tpu_torch.ops import knn as K
 from lili_om_tpu_torch.ops.icp import icp_point_to_plane as ticp
 from test_torch_common import npy, tt
 
@@ -82,3 +88,46 @@ def test_no_match_gives_inf_fitness():
                  n_iters=2)
     assert np.isinf(float(j.fitness)) and torch.isinf(t.fitness) and int(t.n_matched) == 0
     np.testing.assert_allclose(npy(t.t), np.asarray(j.t), atol=TOL)
+
+
+@pytest.mark.parametrize("n_iters", [0, 6])
+def test_pruned_route_equals_plain_route(monkeypatch, n_iters):
+    """ICP through B3's prepared route (``K.searcher``), with the dispatch
+    and the launch patched to the kernel's plain schedule (as chip_smoke.py's
+    CPU rehearsal runs it): the same IcpResult bits as the plain route, the
+    target prepared once per call and the source ordered once, and one
+    search per iteration plus the fitness search."""
+    pts = _cloud(3)
+    rng = np.random.default_rng(3)
+    src = np.concatenate([pts[::2] + rng.normal(scale=0.01, size=(300, 3))
+                          + np.array([0.2, -0.1, 0.05]), np.zeros((20, 3))])
+    tgt = np.concatenate([pts, np.full((30, 3), 2.0)])
+    args = (tt(src, torch.float32), tt(np.arange(len(src)) < 300), tt(tgt, torch.float32),
+            tt(np.arange(len(tgt)) < len(pts)), torch.zeros(3), torch.tensor([1.0, 0, 0, 0]))
+    plain = ticp(*args, n_iters=n_iters)
+
+    calls = {"map": 0, "order": 0, "search": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    def schedule(queries, pmap, q_mask, q_order, k):
+        calls["search"] += 1
+        return K.knn_pruned_schedule(queries, pmap, k, q_mask=q_mask, q_order=q_order)
+
+    # the dispatch takes the card's route; the map and the order are their
+    # plain versions (the kernels' bits)
+    monkeypatch.setenv("LILI_OM_KNN_PRUNED", "1")
+    monkeypatch.setattr(K, "use_kernel", lambda x: True)
+    monkeypatch.setattr(K, "pruned_map", counted("map", K.pruned_map_plain))
+    monkeypatch.setattr(K, "query_order", counted("order", K.morton_order_plain))
+    monkeypatch.setattr(K, "_check_pruned", lambda *a: None)
+    monkeypatch.setattr(K, "launch_pruned_kernel", schedule)
+    pruned = ticp(*args, n_iters=n_iters)
+    assert bool(torch.isfinite(plain.fitness)) and int(plain.n_matched) > 0
+    for f in icp_mod.IcpResult._fields:
+        assert torch.equal(getattr(pruned, f), getattr(plain, f)), f
+    assert calls == {"map": 1, "order": 1, "search": n_iters + 1}

@@ -6,6 +6,11 @@ The plain version adds each segment's rows in row order, as the CUDA kernel
 does, so it is held bit for bit against a sequential float32 sum. XLA and
 the Pallas kernel (a one-hot matmul) add in other orders: against them the
 float32 sums agree to 1e-5, the tolerance of tests/test_segred.py.
+
+The kernel's block schedule (64 segments a block, the rows found by a
+32-way warp search, segment starts and ends from neighbour comparisons in
+chunks of 256 rows) is mirrored in torch and held bit for bit against the
+plain version.
 """
 import jax
 import jax.numpy as jnp
@@ -73,6 +78,64 @@ def test_float64_and_empty_segments():
     assert not out[50:].any()
 
 
+def _schedule_case(name):
+    """(payload f32, ids, num_out) that stress the kernel's block schedule."""
+    rng = np.random.default_rng(4)
+    if name == "long_segments":  # 700 and 1000 rows: longer than a chunk
+        sid = np.concatenate([np.zeros(3), np.full(700, 1), np.arange(2, 40),
+                              np.full(1000, 40), np.arange(41, 100)])
+        M = 100
+    elif name == "across_blocks":  # one long run starting at each block's last segment
+        sid = np.concatenate([np.arange(63), np.full(300, 63), np.full(5, 64),
+                              np.arange(65, 127), np.full(260, 127), np.full(9, 128)])
+        M = 200
+    elif name == "empty_ranges":  # whole blocks without a row, and a gap at the start
+        sid = np.concatenate([np.full(10, 70), np.arange(300, 340), np.full(3, 511)])
+        M = 600
+    elif name == "overflow":  # rows past num_out, some of them in the last block
+        sid = np.concatenate([np.sort(rng.integers(0, 130, 900)), np.full(400, 130),
+                              np.full(50, 999)])
+        M = 130
+    else:  # random runs
+        sid = np.cumsum(rng.random(6000) < 0.2)
+        M = int(sid[-1]) + 1
+    sid = sid.astype(np.int64)
+    return rng.normal(size=(len(sid), 5)).astype(np.float32), sid, M
+
+
+@pytest.mark.parametrize("case", ["random", "long_segments", "across_blocks",
+                                  "empty_ranges", "overflow"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_schedule_equals_plain(case, dtype):
+    """The kernel's schedule mirrored in torch: equal to the plain version
+    bit for bit (one thread per (segment, channel) adds its rows in row
+    order from 0, as index_add_ on the CPU does)."""
+    pay, sid, M = _schedule_case(case)
+    p, s = torch.as_tensor(pay, dtype=dtype), torch.as_tensor(sid)
+    out = TS.segment_sum_sorted_schedule(p, s, M)
+    assert out.dtype == dtype
+    assert torch.equal(out, TS.segment_sum_sorted_plain(p, s, M))
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1025, 40000])
+def test_warp_lower_bound(n):
+    """The 32-way search finds the first row ≥ s for every s, ids with long
+    runs and gaps included."""
+    rng = np.random.default_rng(n)
+    ids = np.sort(rng.integers(0, max(n // 3, 1) * 2, n)).tolist()
+    for s in sorted(set(rng.integers(-1, max(n // 3, 1) * 2 + 2, 60).tolist()) | {0}):
+        assert TS._warp_lower_bound(ids, s) == int(np.searchsorted(ids, s, side="left"))
+
+
+def test_schedule_edge_sizes():
+    """No rows, no segments."""
+    e = torch.zeros((0, 3))
+    ids = torch.zeros((0,), dtype=torch.int64)
+    assert torch.equal(TS.segment_sum_sorted_schedule(e, ids, 5), torch.zeros((5, 3)))
+    p = torch.ones((4, 3))
+    assert TS.segment_sum_sorted_schedule(p, torch.arange(4), 0).shape == (0, 3)
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     """The kernel wrapper never falls back: a CPU tensor raises."""
     with pytest.raises(ValueError):
@@ -100,3 +163,9 @@ def test_cuda_kernel_matches_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert torch.equal(a.cpu(), TS.segment_sum_sorted_plain(p, s, M))
+    for case in ("long_segments", "across_blocks", "empty_ranges", "overflow"):
+        pay, sid, M = _schedule_case(case)
+        p, s = torch.as_tensor(pay, dtype=dtype), torch.as_tensor(sid)
+        a = TS.segment_sum_sorted_cuda(p.to(cuda), s.to(cuda), M)
+        torch.cuda.synchronize()
+        assert torch.equal(a.cpu(), TS.segment_sum_sorted_plain(p, s, M)), case
