@@ -11,18 +11,23 @@ Phases, each printing its own line; any failed check exits non-zero:
 3. main path: ``Frame`` steps (spin features → scan-to-map odometry →
    sliding-window fusion) at the full ``fr_iosb_rot`` width on simulated
    64×1800 scans, with every kernel's launch count set to 0 just before and
-   read just after (the kNN B1 and the segment sum B4 of every voxel
-   downsample and map-table merge); poses are held against the simulator's
+   read just after (the kNN B1 with its map preparation, one per search,
+   and the segment sum B4 of every voxel downsample and map-table merge);
+   poses are held against the simulator's
    trajectory, then the same scans run again under ``plain_kernels()``,
    which launches no kernel, and the two trajectories are held together;
 4. large-map path: odometry with a 98304-point map (above the
    count-bounded kernel's 65536-row limit), which takes the dense launch;
 5. kernels against their plain versions, on the inputs the two paths gave
-   each call site, plus an unmasked 4096×98304 dense case: error, kernel
-   time, the plain version's time, ``torch.cdist``+``topk`` as a yardstick,
-   and the least time the card could take (the larger of bytes over
-   3.35 TB/s and 8 f32 operations per needed (query, point) pair over
-   67 TFLOP/s, H100 SXM data-sheet peaks);
+   each call site, plus an unmasked 4096×98304 dense case: B1/B2 through
+   the per-call route (the map prepared in the call) and the prepared route
+   (a ``KnnMap``), bit for bit; the preparation kernel against
+   ``knn_map_plain`` once per map size; the times of both routes, the
+   search alone, the preparation, the
+   plain version, ``torch.cdist``+``topk`` as a yardstick, and the least
+   time the card could take (the larger of bytes over 3.35 TB/s and 8 f32
+   operations per needed (query, point) pair over 67 TFLOP/s, H100 SXM
+   data-sheet peaks);
 6. system phase: the port's ``LiliOmSystem`` at the full ``fr_iosb_rot``
    width (preset odometry, fusion, features and loop-closure widths) over a
    simulated lap at walking speed that returns to its start, IMU pushed up
@@ -46,10 +51,12 @@ Phases, each printing its own line; any failed check exits non-zero:
    lap with Horizon sweeps at full width (6 × 4000 points, ``n_cols``
    4000), closures every 10 scans, the pruned switch unset: odometry
    against the simulated sensor poses, the keyframe RMSE, surf matches on
-   ≥ 90 % of the scans, B1 and B4 launched and B3 not, the closure attempts
-   and their fitness; then B1 against its plain version on the inputs each
-   of its call sites on the lap gave it (ICP k=5 and k=1, odometry,
-   fusion);
+   ≥ 90 % of the scans, B1 and B4 launched and B3 not, each ICP preparing
+   its target once (one ``knn_map``) and launching one B1 search per
+   iteration, the closure attempts and their fitness; then B1 against its
+   plain version on the inputs each of its call sites on the lap gave it
+   (ICP k=5 and k=1 on the recorded prepared map, odometry, fusion) and the
+   preparation kernel per map size, as in phase 5;
 8. B4 at every call site of the three paths (the first call of each from
    the recorded scan on): ids non-decreasing, two launches bit-identical,
    equal to the plain version on a CPU copy in float32 and float64, its
@@ -107,6 +114,9 @@ TRAJ_TOL_M, TRAJ_TOL_RAD = 5e-3, 5e-3
 GT_TOL_M, GT_TOL_RAD = 0.25, 0.05
 REPLACES = {"knn_counted": "lili_om_tpu/ops/knn_pallas.py:234",
             "knn_dense": "lili_om_tpu/ops/knn_pallas.py:64",
+            # B1/B2's preparation does the work of knn_pallas_counted's
+            # pre-pass around its Pallas call (masking, padding, last valid row)
+            "knn_map": "lili_om_tpu/ops/knn_pallas.py:303-326",
             "knn_pruned": "lili_om_tpu/ops/knn_pallas.py:426",
             # B3's map kernels do the work of knn_pallas_pruned's pre-pass
             # around its Pallas call (Morton keys and sorts, padding, tile boxes)
@@ -180,6 +190,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_ms(fn, kernel: str, iters: int = 20):
+    """Mean device time of one launch of the kernel whose name holds
+    ``kernel`` (``fn`` launches it once), from a ``torch.profiler`` window
+    over ``iters`` calls: CUDA events around back-to-back calls time the
+    host's enqueue wherever a kernel is shorter than its launch. The mean is
+    over the launches the window recorded; a window that recorded fewer
+    than half of them is taken again. None if none was recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            sync()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        n = sum(e.count for e in rows)
+        if 2 * n >= iters:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / n
+    return None
+
+
 def run_path(cfgs, scans, label: str):
     """Drive ``Frame`` over ``scans`` with the launch counts set to 0 just
     before and read just after. Returns (frame, poses, per-scan ms, kNN
@@ -251,20 +285,25 @@ class Recorder(Patch):
     """Wraps the kernel wrapper ``K.<name>`` for a run: every call launches
     the kernel once, as unwrapped, and while ``armed`` the inputs of the
     first call at each call site (Q, P, k) are copied for the kernel checks
-    (one copy per site, so a timed run pays for a few copies only). B3's map
-    may come prepared (a ``K.PrunedMap``, with the caller's query order)."""
+    (one copy per site, so a timed run pays for a few copies only). The map
+    may come prepared (a ``K.PrunedMap`` with the caller's query order, or a
+    ``K.KnnMap``)."""
 
     def __init__(self, name: str, armed: bool = True):
         super().__init__(K, name)
         self.armed, self.seen = armed, {}
 
     def __call__(self, queries, points, k=5, p_mask=None, q_mask=None, **kw):
-        prepared = isinstance(points, K.PrunedMap)
+        prepared = isinstance(points, (K.PrunedMap, K.KnnMap))
         key = (queries.shape[0], points.n_points if prepared else points.shape[0], k)
         if self.armed and key not in self.seen:
             copy = lambda x: None if x is None else x.clone()
-            pts = (K.PrunedMap(*(copy(x) for x in points[:5]), *points[5:]) if prepared
-                   else copy(points))
+            if isinstance(points, K.PrunedMap):
+                pts = K.PrunedMap(*(copy(x) for x in points[:5]), *points[5:])
+            elif prepared:
+                pts = K.KnnMap(copy(points.pts4), copy(points.bound), points.n_points)
+            else:
+                pts = copy(points)
             self.seen[key] = (copy(queries), pts, copy(p_mask), copy(q_mask),
                               copy(kw.get("q_order")))
         return self.orig(queries, points, k, p_mask, q_mask, **kw)
@@ -330,8 +369,18 @@ def capture_inputs(frame: Frame, scan):
           SegRecorder() as seg):
         frame.step(scan)
     sync()
-    return ({(name, q, p): v for name, rec in (("knn_counted", counted), ("knn_dense", dense))
-             for (q, p, _), v in rec.seen.items()}, seg.seen)
+    return ({(name,) + key: v for name, rec in (("knn_counted", counted), ("knn_dense", dense))
+             for key, v in rec.seen.items()}, seg.seen)
+
+
+def site_names(odo, fus, icp_cap=None):
+    """{(Q, P): call site} of the kNN searches of one configuration."""
+    names = {(odo.query_cap, odo.map_cap): "odometry",
+             (fus.window * fus.kf_surf_cap, fus.map_surf_cap): "fusion_surf",
+             (fus.window * fus.kf_edge_cap, fus.map_edge_cap): "fusion_edge"}
+    if icp_cap is not None:
+        names[icp_cap, icp_cap] = "icp"
+    return names
 
 
 def library_knn(queries, points, k, p_mask, q_mask):
@@ -343,23 +392,46 @@ def library_knn(queries, points, k, p_mask, q_mask):
     return v * v, i
 
 
+def knn_map_points(kmap):
+    """The raw map (points, mask) a ``K.KnnMap`` was prepared from."""
+    return kmap.pts4[:, :3].contiguous(), kmap.pts4[:, 3] == 0.0
+
+
 def compare_kernel(name, site, inputs, launches, k=5):
-    """Kernel against the plain version on the same inputs; timings; bound."""
-    q, p, pm, qm = inputs[:4]
-    counted = name == "knn_counted"
-    wrapper = K.knn_counted_cuda if counted else K.knn_dense_cuda
+    """B1/B2 at one call site against the plain version on the same inputs
+    (equal bit for bit), through the per-call route (the map prepared in the
+    call: two launches) and the prepared route (a ``K.KnnMap``: one launch);
+    the preparation kernel against ``knn_map_plain``; times of each route as
+    the site calls it, the search alone (CUDA events, and the device time
+    from a profiler window), the plain version and cdist+topk; the bound."""
+    q, pts, pm, qm = inputs[:4]
+    prepared = isinstance(pts, K.KnnMap)
+    p, pm = knn_map_points(pts) if prepared else (pts, pm)
+    wrapper = K.knn_counted_cuda if name == "knn_counted" else K.knn_dense_cuda
+    fresh, plain_map = K.knn_map(p, pm), K.knn_map_plain(p, pm)
+    sync()
+    check(bool(torch.equal(fresh.pts4, plain_map.pts4))
+          and bool(torch.equal(fresh.bound, plain_map.bound)),
+          f"{site}: the prepared map differs from knn_map_plain")
+    if prepared:
+        check(bool(torch.equal(pts.pts4, fresh.pts4)) and bool(torch.equal(pts.bound, fresh.bound)),
+              f"{site}: the recorded map differs from a fresh one")
+    kmap = pts if prepared else fresh
     d_k, i_k = wrapper(q, p, k, pm, qm)
+    d_r, i_r = wrapper(q, kmap, k, q_mask=qm)
     d_p, i_p = K.knn(q, p, k=k, q_mask=qm, p_mask=pm)
     sync()
     # the kernel sums (q-p)^2 in the plain version's order without FMA and
-    # breaks ties toward the lower index as the plain version does: its
-    # distances and indices must equal the plain version's exactly
+    # keeps the (d^2, index) order through its lanes' merge: its distances
+    # and indices must equal the plain version's exactly, on either route
     fin = torch.isfinite(d_p)
-    err = float((d_k[fin] - d_p[fin]).abs().max()) if bool(fin.any()) else 0.0
-    check(bool(torch.equal(d_k, d_p)), f"{site}: distances differ from the plain "
-          f"version (max {err:.3e})")
-    check(bool(torch.equal(i_k, i_p)), f"{site}: indices differ from the plain version "
-          f"at {int((i_k != i_p).sum())} slots")
+    err = max(float((d[fin] - d_p[fin]).abs().max()) if bool(fin.any()) else 0.0
+              for d in (d_k, d_r))
+    for route, (d, i) in (("per-call", (d_k, i_k)), ("prepared", (d_r, i_r))):
+        check(bool(torch.equal(d, d_p)), f"{site} ({route}): distances differ from the plain "
+              f"version (max {err:.3e})")
+        check(bool(torch.equal(i, i_p)), f"{site} ({route}): indices differ from the plain "
+              f"version at {int((i != i_p).sum())} slots")
     check(bool(torch.all(i_k[~fin] == 0)), f"{site}: empty slots must hold index 0")
     check(bool(torch.all(d_k[:, 1:] >= d_k[:, :-1])), f"{site}: distances not ascending")
     if pm is not None:
@@ -370,11 +442,14 @@ def compare_kernel(name, site, inputs, launches, k=5):
     g = g + diff[..., 2] * diff[..., 2]
     check(bool(torch.equal(g[fin], d_k[fin])), f"{site}: gathered distances differ")
 
-    prep = K.kernel_inputs(q, p, k, pm, qm, counted=counted)
-    ms = cuda_ms(lambda: wrapper(q, p, k, pm, qm), 50)
-    kernel_ms = cuda_ms(lambda: K.launch_kernel(*prep, k), 50)
+    raw_ms = cuda_ms(lambda: wrapper(q, p, k, pm, qm), 50)
+    prep_ms = cuda_ms(lambda: wrapper(q, kmap, k, q_mask=qm), 50)
+    kernel_ms = cuda_ms(lambda: K.launch_kernel(q, kmap, qm, k), 50)
+    dev_ms = device_ms(lambda: K.launch_kernel(q, kmap, qm, k), "search_kernel")
     plain_ms = cuda_ms(lambda: K.knn(q, p, k=k, q_mask=qm, p_mask=pm), 10)
     lib_ms = cuda_ms(lambda: library_knn(q, p, k, pm, qm), 10)
+    ms = prep_ms if prepared else raw_ms
+    fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"
 
     Q, P = q.shape[0], p.shape[0]
     nq = Q if qm is None else int(qm.sum())
@@ -384,15 +459,62 @@ def compare_kernel(name, site, inputs, launches, k=5):
         + Q * k * (4 + 8)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     bound_ms = 1e3 * max(t_ops, t_bytes)
-    print(f"[kernel] {site}: valid q {nq}/{Q} p {np_}/{P}; max|Δd²| {err:.3e}; "
-          f"wrapper {ms:.4f} ms kernel "
-          f"{kernel_ms:.4f} ms plain {plain_ms:.4f} ms cdist+topk {lib_ms:.4f} ms "
-          f"bound {bound_ms:.5f} ms")
+    print(f"[kernel] {site}: valid q {nq}/{Q} p {np_}/{P} (walk bound {int(kmap.bound[0])}); "
+          f"max|Δd²| {err:.3e}; as called ({'prepared' if prepared else 'per-call'} route) "
+          f"{ms:.4f} ms; per-call route {raw_ms:.4f} ms; prepared route {prep_ms:.4f} ms; "
+          f"search kernel {kernel_ms:.4f} ms, device time {fmt(dev_ms)}; "
+          f"plain {plain_ms:.4f} ms; cdist+topk {lib_ms:.4f} ms; bound "
+          f"{bound_ms:.5f} ms")
     return {"name": f"{name}[{site}]", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches, "max_abs_err": err,
             "ms": ms, "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms, "shape": [Q, P], "valid": [nq, np_]}
+            "library_ms": lib_ms, "as_called": "prepared" if prepared else "per-call",
+            "per_call_route_ms": raw_ms, "prepared_route_ms": prep_ms,
+            "kernel_device_ms": dev_ms, "shape": [Q, P], "valid": [nq, np_]}
+
+
+def compare_knn_map(what, pts, mask, launches):
+    """B1/B2's preparation kernel on one map against ``knn_map_plain``
+    (equal bit for bit): its times as called (allocation included), the
+    kernel alone and the plain version's; the bound counts its bytes (the
+    points and the mask read once, the float4 rows and the bound written)."""
+    P = pts.shape[0]
+    kmap = K.knn_map_cuda(pts, mask)
+    ref = K.knn_map_plain(pts, mask)
+    sync()
+    check(bool(torch.equal(kmap.pts4, ref.pts4)) and bool(torch.equal(kmap.bound, ref.bound)),
+          f"knn_map {what}: differs from knn_map_plain")
+    ms = cuda_ms(lambda: K.knn_map_cuda(pts, mask), 50)
+    kernel_ms = cuda_ms(lambda: K.launch_map_kernel(pts, mask, kmap), 50)
+    dev_ms = device_ms(lambda: K.launch_map_kernel(pts, mask, kmap), "map_kernel")
+    plain_ms = cuda_ms(lambda: K.knn_map_plain(pts, mask), 50)
+    t_bytes = (12 * P + (0 if mask is None else P) + 16 * P + 4) / PEAK_BYTES
+    bound_ms = 1e3 * t_bytes
+    print(f"[kernel] knn_map {what}: {P} rows, walk bound {int(kmap.bound[0])}; wrapper "
+          f"{ms:.4f} ms kernel {kernel_ms:.4f} ms (device time "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}) plain {plain_ms:.4f} ms bound "
+          f"{bound_ms:.5f} ms; launches of this shape on the path {launches}")
+    return {"name": f"knn_map[{what}]", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES["knn_map"], "launches": launches, "max_abs_err": 0.0,
+            "ms": ms, "kernel_only_ms": kernel_ms, "kernel_device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "shape": [P]}
+
+
+def compare_sites(phase, inputs, counts, names):
+    """``compare_kernel`` at every recorded site of one path, then the
+    preparation kernel once per map size (its launches are counted per
+    size). ``inputs``: {(wrapper name, Q, P, k): recorded inputs}."""
+    rows, maps = [], {}
+    for (w, q, p, k), v in sorted(inputs.items()):
+        site = f"{phase}{names.get((q, p), 'site')}_k{k}_{q}x{p}"
+        rows.append(compare_kernel(w, site, v, counts.get((w, q, p, k), 0), k=k))
+        pts = v[1]
+        maps.setdefault(p, knn_map_points(pts) if isinstance(pts, K.KnnMap) else (pts, v[2]))
+    for p, (pts, mask) in sorted(maps.items()):
+        rows.append(compare_knn_map(f"{phase}{p}", pts, mask, counts.get(("knn_map", 0, p, 0), 0)))
+    return rows
 
 
 def sim_lap(cfg, n: int, livox: bool = False):
@@ -620,7 +742,7 @@ def check_system(sys_, host_ms, counts, facts):
     check(site(W * fus.kf_surf_cap, fus.map_surf_cap, fus.k) >= 1
           and site(W * fus.kf_edge_cap, fus.map_edge_cap, fus.k) >= 1,
           "system: a fusion site did not launch B3")
-    check(K.launch_count("knn_counted") == 0 and K.launch_count("knn_dense") == 0,
+    check(all(K.launch_count(w) == 0 for w in ("knn_counted", "knn_dense", "knn_map")),
           "system: B1/B2 launched under LILI_OM_KNN_PRUNED=1")
     for t in sys_.trajectory:
         check(bool(np.all(np.isfinite(t))), "system: a pose is not finite")
@@ -745,6 +867,21 @@ def check_livox(sys_, host_ms, counts, seg_counts, facts):
           f"livox: surf correspondences on only {100 * facts['acquired']:.1f} % of the scans")
     check(sum(c for (w, *_), c in counts.items() if w == "knn_counted") > 0,
           "livox: B1 did not launch")
+    # each ICP prepares its target once, then launches one B1 search per
+    # iteration and one for the fitness
+    lc, n_icp = sys_.lc_cfg, len(sys_.metrics.samples.get("icp", []))
+    cap = lc.submap_cap
+    site = lambda w, q, p, k: counts.get((w, q, p, k), 0)
+    print(f"[livox] ICP runs {n_icp}: map preparations {site('knn_map', 0, cap, 0)}, B1 "
+          f"searches k=5 {site('knn_counted', cap, cap, 5)} k=1 {site('knn_counted', cap, cap, 1)}")
+    check(n_icp >= 1 and site("knn_map", 0, cap, 0) == n_icp,
+          f"livox: {site('knn_map', 0, cap, 0)} map preparations at the ICP site for {n_icp} "
+          "ICP runs (one per run)")
+    check(site("knn_counted", cap, cap, 5) == lc.icp_iters * n_icp
+          and site("knn_counted", cap, cap, 1) == n_icp,
+          f"livox: ICP launches {site('knn_counted', cap, cap, 5)} (k=5) / "
+          f"{site('knn_counted', cap, cap, 1)} (k=1) for {n_icp} ICP runs of {lc.icp_iters} "
+          "iterations")
     check(all(w != "knn_pruned" for (w, *_) in counts), "livox: B3 launched")
     check(sum(seg_counts.values()) > 0, "livox: B4 did not launch")
 
@@ -1048,6 +1185,11 @@ def main(argv=None) -> int:
     main_counts = counts
     check(K.launch_count("knn_counted") >= 3 * n,
           f"main path: {K.launch_count('knn_counted')} kNN launches for {n} scans")
+    # every search of the path prepares its map in the call: one
+    # preparation a search
+    check(K.launch_count("knn_map") == K.launch_count("knn_counted"),
+          f"main path: {K.launch_count('knn_map')} map preparations for "
+          f"{K.launch_count('knn_counted')} searches")
     check(SG.launch_count() >= n, f"main path: {SG.launch_count()} B4 launches for {n} scans")
     for (w, q, p, _), c in counts.items():
         check(c >= n, f"main path: call site {w}:{q}x{p} launched {c} times for {n} scans")
@@ -1073,21 +1215,19 @@ def main(argv=None) -> int:
     # 4. large-map path: the dense launch
     big = cfgs._replace(odometry=cfgs.odometry._replace(map_cap=LARGE_MAP))
     big_frame, _, _, big_counts, _ = run_path(big, scans[:N_WARM + 2], "large-map path")
-    check(K.launch_count("knn_dense") >= N_WARM + 2,
-          f"large-map path: {K.launch_count('knn_dense')} dense launches")
+    check(K.launch_count("knn_dense") >= N_WARM + 2
+          and K.launch_count("knn_map") == K.launch_count("knn_dense")
+          + K.launch_count("knn_counted"),
+          f"large-map path: {K.launch_count('knn_dense')} dense launches, "
+          f"{K.launch_count('knn_map')} map preparations")
     big_inputs = {key: v for key, v in capture_inputs(big_frame, scans[N_WARM + 2])[0].items()
                   if key[0] == "knn_dense"}
 
     # 5. kernels against their plain versions
-    sites = {"knn_counted": {4096: "odometry", 6144: "fusion_surf", 3072: "fusion_edge"},
-             "knn_dense": {4096: "odometry_large_map"}}
-    kernels = []
-    for key, inputs in list(main_inputs.items()) + list(big_inputs.items()):
-        w, q, p = key
-        site = f"{sites[w].get(q, 'site')}_{q}x{p}"
-        launches = (main_counts if w == "knn_counted" else big_counts).get(key + (5,), 0)
-        kernels.append(compare_kernel(w, site, inputs, launches))
-    check({k["name"].split("[")[0] for k in kernels} == {"knn_counted", "knn_dense"},
+    kernels = compare_sites("", main_inputs, main_counts, site_names(cfgs.odometry, cfgs.fusion))
+    kernels += compare_sites("", big_inputs, big_counts,
+                             {(cfgs.odometry.query_cap, LARGE_MAP): "odometry_large_map"})
+    check({k["name"].split("[")[0] for k in kernels} == {"knn_counted", "knn_dense", "knn_map"},
           "a kernel had no call site to compare")
     # unmasked dense case: no masks, P above the count-bounded limit
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -1115,11 +1255,7 @@ def main(argv=None) -> int:
             t=np.stack([c[2].t.cpu().numpy() for c in icp_calls]),
             q=np.stack([c[2].q.cpu().numpy() for c in icp_calls]),
             fitness=np.array([float(c[2].fitness) for c in icp_calls]))
-    cap = sys_.lc_cfg.submap_cap
-    odo, fus = sys_.odo_cfg, sys_.fusion_cfg
-    names = {(cap, cap): "icp", (odo.query_cap, odo.map_cap): "odometry",
-             (fus.window * fus.kf_surf_cap, fus.map_surf_cap): "fusion_surf",
-             (fus.window * fus.kf_edge_cap, fus.map_edge_cap): "fusion_edge"}
+    names = site_names(sys_.odo_cfg, sys_.fusion_cfg, sys_.lc_cfg.submap_cap)
     map_rows = []
     for (q, p, k), inputs in sorted(sys_inputs.items()):
         site = f"{names.get((q, p), 'site')}_k{k}_{q}x{p}"
@@ -1150,19 +1286,14 @@ def main(argv=None) -> int:
     lvx, lvx_ms, lvx_counts, lvx_seg_counts, lvx_seg, lvx_facts, lvx_inputs = livox_phase()
     check_livox(lvx, lvx_ms, lvx_counts, lvx_seg_counts, lvx_facts)
     lvx_rejects = lvx.lc_rejects
-    # B1 at each call site of the Livox lap (ICP runs B1 there)
-    cap = lvx.lc_cfg.submap_cap
-    odo, fus = lvx.odo_cfg, lvx.fusion_cfg
-    names = {(cap, cap): "icp", (odo.query_cap, odo.map_cap): "odometry",
-             (fus.window * fus.kf_surf_cap, fus.map_surf_cap): "fusion_surf",
-             (fus.window * fus.kf_edge_cap, fus.map_edge_cap): "fusion_edge"}
-    for (q, p, k), inputs in sorted(lvx_inputs.items()):
-        kernels.append(compare_kernel(
-            "knn_counted", f"livox_{names.get((q, p), 'site')}_k{k}_{q}x{p}", inputs,
-            lvx_counts.get(("knn_counted", q, p, k), 0), k=k))
-    check({n.split("[livox_")[1].split("_k")[0] for n in (x["name"] for x in kernels)
-           if n.startswith("knn_counted[livox_")} >= {"icp", "odometry", "fusion_surf",
-                                                       "fusion_edge"},
+    # B1 at each call site of the Livox lap (ICP runs B1 there, on its
+    # prepared map)
+    lvx_rows = compare_sites("livox_", {("knn_counted",) + key: v for key, v in lvx_inputs.items()},
+                             lvx_counts, site_names(lvx.odo_cfg, lvx.fusion_cfg,
+                                                    lvx.lc_cfg.submap_cap))
+    kernels += lvx_rows
+    check({n.split("[livox_")[1].split("_k")[0] for n in (x["name"] for x in lvx_rows)
+           if n.startswith("knn_counted[")} >= {"icp", "odometry", "fusion_surf", "fusion_edge"},
           "B1: a call site of the Livox lap was not recorded")
     del lvx, lvx_inputs
 

@@ -63,7 +63,11 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "knn_common.cuh"
+
 namespace {
+
+using namespace lili_knn;
 
 constexpr int kQB = 32;                 // queries per block
 constexpr int kLanes = 8;               // threads per query
@@ -72,7 +76,6 @@ constexpr int kTile = 512;              // map points per tile
 constexpr int kMaxTiles = 2048;         // 12 B of shared memory per tile
 constexpr int kKeyThreads = 1024;
 constexpr float kMargin = 1.0f - 0x1p-11f;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr long long kInvalidKey = 0x7fffffffLL;
 
 __device__ __forceinline__ unsigned spread10(unsigned x) {
@@ -193,16 +196,6 @@ scatter_kernel(const float* __restrict__ pts, const long long* __restrict__ sort
 }
 
 // ---- search --------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // whether the walk scans its t-th tile: one with a valid point whose bound,
 // less the margin, does not exceed the block's worst distance
 __device__ __forceinline__ bool walk_scans(const float* lb_walk, int t, int n_tiles,
@@ -220,68 +213,6 @@ __device__ __forceinline__ void stage_tile(float4* s_pts, int* s_idx, const floa
   for (int j = threadIdx.x; j < kTile / 4; j += kThreads)
     cp_async16(&s_idx[4 * j], p_idx + start + 4 * j);
   cp_async_commit();
-}
-
-// (d, i) < (e, j) in the (d^2, original index) order
-__device__ __forceinline__ bool before(float d, int i, float e, int j) {
-  return d < e || (d == e && i < j);
-}
-
-template <int K>
-__device__ __forceinline__ void insert(float (&bd)[K], int (&bi)[K], float d, int idx) {
-  bd[K - 1] = d;
-  bi[K - 1] = idx;
-#pragma unroll
-  for (int s = K - 1; s > 0; --s) {
-    if (before(bd[s], bi[s], bd[s - 1], bi[s - 1])) {
-      const float td = bd[s];
-      bd[s] = bd[s - 1];
-      bd[s - 1] = td;
-      const int ti = bi[s];
-      bi[s] = bi[s - 1];
-      bi[s - 1] = ti;
-    }
-  }
-}
-
-// The kLanes sorted lists of one query (kLanes consecutive threads) merged
-// into their top-K, left in every lane. Each round takes the smallest head;
-// every lane whose head is that element (the same point, held by several
-// lanes since the last merge) drops it, so each element is taken once.
-template <int K>
-__device__ __forceinline__ void merge_lanes(float (&bd)[K], int (&bi)[K]) {
-  float md[K];
-  int mi[K];
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    float cd = bd[0];
-    int ci = bi[0];
-#pragma unroll
-    for (int off = kLanes / 2; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(kFull, cd, off);
-      const int oi = __shfl_xor_sync(kFull, ci, off);
-      if (before(od, oi, cd, ci)) {
-        cd = od;
-        ci = oi;
-      }
-    }
-    md[s] = cd;
-    mi[s] = ci;
-    if (bd[0] == cd && bi[0] == ci) {
-#pragma unroll
-      for (int j = 0; j < K - 1; ++j) {
-        bd[j] = bd[j + 1];
-        bi[j] = bi[j + 1];
-      }
-      bd[K - 1] = CUDART_INF_F;
-      bi[K - 1] = 0;
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < K; ++s) {
-    bd[s] = md[s];
-    bi[s] = mi[s];
-  }
 }
 
 template <int K>
@@ -379,13 +310,7 @@ search_kernel(const float* __restrict__ queries, const unsigned char* __restrict
         const int* ti = s_idx[t & 1];
 #pragma unroll 4
         for (int j = lane; j < kTile; j += kLanes) {
-          const float4 p = tp[j];
-          const float dx = __fsub_rn(qx, p.x);
-          const float dy = __fsub_rn(qy, p.y);
-          const float dz = __fsub_rn(qz, p.z);
-          const float d = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                              __fmul_rn(dz, dz)),
-                                    p.w);
+          const float d = sq_dist(qx, qy, qz, tp[j]);
           if (d <= bd[K - 1]) {
             const int idx = ti[j];
             if (d < bd[K - 1] || idx < bi[K - 1]) {
@@ -395,7 +320,7 @@ search_kernel(const float* __restrict__ queries, const unsigned char* __restrict
           }
         }
       }
-      if (__any_sync(kFull, changed)) merge_lanes<K>(bd, bi);
+      if (__any_sync(kFull, changed)) merge_lanes<K, kLanes>(bd, bi);
       ++n_visit;
       // the block's worst: the largest merged k-th distance of a valid query
       float w = active ? bd[K - 1] : -CUDART_INF_F;

@@ -3,8 +3,8 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into
 ``lili_om_tpu_torch/_build/`` (listed in ``.gitignore``). The file name
-carries a hash of the source, so an edited kernel is rebuilt and an
-unchanged one is reused. Libraries are loaded with ``ctypes``.
+carries a hash of the source and of the shared headers (``csrc/*.cuh``), so
+an edited kernel is rebuilt and an unchanged one is reused. Libraries are loaded with ``ctypes``.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -39,7 +39,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of kernel ``name``; its tag hashes the source, every
+    shared header of ``csrc/`` and the flags."""
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

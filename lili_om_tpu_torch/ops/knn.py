@@ -5,20 +5,25 @@
   running top-k merged by k min-extractions (``argmin`` returns the first
   minimum, so the lower index wins ties).
 * :func:`knn_counted_cuda` / :func:`knn_dense_cuda` launch the hand-written
-  CUDA kernel (``csrc/knn.cu``), the counterparts of the Pallas kernels
-  ``knn_pallas_counted`` and ``knn_pallas``.
+  CUDA search (``csrc/knn.cu``), the counterparts of the Pallas kernels
+  ``knn_pallas_counted`` and ``knn_pallas``, on a map that :func:`knn_map`
+  prepares once (one kernel: float4 rows and the walk bound), or on raw
+  points prepared inside the call; :func:`knn_lanes_schedule` is the
+  search's plain version for the CPU tests (the same lane shares and
+  merge).
 * :func:`knn_pruned_cuda` launches the Morton-sorted, bound-pruned search
   (``csrc/knn_pruned.cu``), the counterpart of ``knn_pallas_pruned``, on a
   map that :func:`pruned_map` prepares once (two kernels and one sort) and
-  queries in an order that :func:`query_order` gives once (:func:`searcher`
-  does both once for ICP's searches); :func:`knn_pruned_schedule` is its plain version for the
-  CPU tests: the same prepared map, block layout, tile order and skip test,
-  and the same visits per block.
+  queries in an order that :func:`query_order` gives once;
+  :func:`knn_pruned_schedule` is its plain version for the CPU tests: the
+  same prepared map, block layout, tile order and skip test, and the same
+  visits per block.
 * :func:`knn_auto`, :func:`world_knn_auto` and :func:`knn_pair_auto` are what
   the pipeline calls: on a CUDA tensor they launch a kernel (or raise), on
   a CPU tensor they run the plain version. ``LILI_OM_KNN_PRUNED=1``, the JAX
   package's switch, read at each call, sends every CUDA search to the
-  pruned kernel.
+  pruned kernel. :func:`searcher` prepares ICP's fixed target once for
+  whichever kernel its searches take.
 
 Contract: (d² (Q,k) ascending, ties to the lower index, idx (Q,k) int64);
 masked points never match; slots without a neighbour and rows of invalid
@@ -53,8 +58,8 @@ def reset_launch_counts():
 
 
 def launch_count(name: str | None = None) -> int:
-    """Launches of wrapper ``name`` ("knn_counted" / "knn_dense" /
-    "knn_pruned"; None: all)."""
+    """Launches of wrapper ``name`` ("knn_map" / "knn_counted" / "knn_dense" /
+    "knn_pruned" / "pruned_keys" / "pruned_scatter"; None: all)."""
     return sum(n for key, n in LAUNCHES.items() if name is None or key[0] == name)
 
 
@@ -105,16 +110,18 @@ def knn(queries: torch.Tensor, points: torch.Tensor, k: int = 5,
 
 def _check_cloud(pts, mask, what: str, device=None, contiguous: bool = True):
     """A cloud a kernel reads: float32 (n, 3) on the CUDA device ``device``
-    (default its own), contiguous where the kernel reads it in place, its
-    mask a contiguous bool (n,) there."""
+    (default its own), contiguous where the kernel reads it in place (else
+    its rows contiguous: strides (s, 1)), its mask a contiguous bool (n,)
+    there."""
     device = pts.device if device is None else device
     if pts.device.type != "cuda" or pts.device != device:
         raise ValueError(f"the CUDA kNN needs {what} on the queries' CUDA device")
     if pts.dtype != torch.float32:
         raise TypeError(f"the CUDA kNN takes float32 {what} only")
-    if pts.dim() != 2 or pts.shape[1] != 3 or (contiguous and not pts.is_contiguous()):
+    if pts.dim() != 2 or pts.shape[1] != 3 or (
+            not pts.is_contiguous() if contiguous else pts.stride(1) != 1):
         raise ValueError(f"{what} must be a {'contiguous ' if contiguous else ''}(n, 3) "
-                         "tensor")
+                         f"tensor{'' if contiguous else ' with contiguous rows'}")
     if mask is not None and (mask.dtype != torch.bool or mask.shape != (pts.shape[0],)
                              or mask.device != device or not mask.is_contiguous()):
         raise ValueError(f"the mask of {what} must be a contiguous bool "
@@ -126,82 +133,174 @@ def _check_k(k: int):
         raise ValueError("the CUDA kNN supports 1 ≤ k ≤ 8")
 
 
-def _check(queries, points, k, p_mask, q_mask):
-    _check_cloud(queries, q_mask, "queries")
-    # kernel_inputs copies the points into float4 rows
-    _check_cloud(points, p_mask, "points", queries.device, contiguous=False)
-    _check_k(k)
-
-
 def _raise_on(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-@functools.cache
-def _library():
-    """The B1/B2 kernel's ctypes function, bound once."""
-    fn = cuda_build.load("knn").lili_knn_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-    return fn
+# --- B1/B2: the map prepared once, lanes per query ---------------------------
+
+# lanes per query of csrc/knn.cu (kLanes): a warp per query
+LANES = 32
 
 
-def kernel_inputs(queries, points, k: int = 5, p_mask=None, q_mask=None,
-                  counted: bool = True):
-    """Check the arguments and build what the kernel reads: the map as
-    (P,4) float4 rows with the mask in lane 3 (0 valid, +inf masked) and,
-    for the count-bounded launch, the walk bound (one past the last valid
-    row) as a device scalar — torch ops only, no host sync."""
-    _check(queries, points, k, p_mask, q_mask)
-    P, dev = points.shape[0], queries.device
-    pts4 = torch.empty((P, 4), dtype=torch.float32, device=dev)
+class KnnMap(NamedTuple):
+    """A map prepared for B1/B2 (:func:`knn_map`), built once per map and
+    searched any number of times: the counterpart of ``knn_pallas_counted``'s
+    pre-pass."""
+
+    pts4: torch.Tensor  # (P, 4) rows, lane 3: 0 valid / +inf masked
+    bound: torch.Tensor  # (1,) int32, one past the last valid row (0: none)
+    n_points: int  # rows of the map
+
+
+def knn_map_plain(points, p_mask=None) -> KnnMap:
+    """:func:`knn_map` in torch ops (the same tensors)."""
+    P, dev = points.shape[0], points.device
+    pts4 = torch.empty((P, 4), dtype=points.dtype, device=dev)
     pts4[:, :3] = points
     pts4[:, 3] = 0.0 if p_mask is None else torch.where(p_mask, 0.0, float("inf"))
-    n_pts = None
-    if counted:
+    if p_mask is None or P == 0:
+        bound = torch.full((1,), P, dtype=torch.int32, device=dev)
+    else:
         rows = torch.arange(1, P + 1, dtype=torch.int32, device=dev)
-        src = rows if p_mask is None else torch.where(p_mask, rows, 0)
-        n_pts = (src.max().reshape(1) if P
-                 else torch.zeros(1, dtype=torch.int32, device=dev))
-    return queries, pts4, (q_mask if counted else None), n_pts
+        bound = torch.where(p_mask, rows, 0).amax().reshape(1)
+    return KnnMap(pts4, bound, P)
 
 
-def launch_kernel(queries, pts4, q_mask, n_pts, k: int):
-    """One launch on the current stream; allocates the outputs only."""
-    Q, P, dev = queries.shape[0], pts4.shape[0], queries.device
+@functools.cache
+def _library() -> dict:
+    """The B1/B2 kernels' ctypes functions, bound once."""
+    lib = cuda_build.load("knn")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fns = {}
+    for name, args in (("map", [ptr, i64, ptr, i32, ptr, ptr, ptr]),
+                       ("f32", [ptr, ptr, i32, ptr, ptr, i32, i32] + [ptr] * 3)):
+        fn = getattr(lib, f"lili_knn_{name}")
+        fn.restype, fn.argtypes = i32, args
+        fns[name] = fn
+    return fns
+
+
+def launch_map_kernel(points, p_mask, kmap: KnnMap) -> KnnMap:
+    """One launch of the preparation into the tensors of ``kmap``."""
+    _raise_on(_library()["map"](
+        points.data_ptr(), points.stride(0), None if p_mask is None else p_mask.data_ptr(),
+        points.shape[0], kmap.pts4.data_ptr(), kmap.bound.data_ptr(),
+        cuda_build.stream_ptr(points.device)), "knn map")
+    return kmap
+
+
+def knn_map_cuda(points, p_mask=None) -> KnnMap:
+    """:func:`knn_map` on the card: one launch of the preparation kernel."""
+    _check_cloud(points, p_mask, "points", contiguous=False)
+    P, dev = points.shape[0], points.device
+    kmap = launch_map_kernel(points, p_mask, KnnMap(
+        torch.empty((P, 4), dtype=torch.float32, device=dev),
+        torch.empty((1,), dtype=torch.int32, device=dev), P))
+    LAUNCHES["knn_map", 0, P, 0] += 1
+    return kmap
+
+
+def knn_map(points, p_mask=None) -> KnnMap:
+    """The map prepared for :func:`knn_counted_cuda` / :func:`knn_dense_cuda`,
+    once per map: float4 rows with the mask in lane 3 (0 valid, +inf
+    masked) and the walk bound, one past the last valid row (the row count
+    without a mask, 0 for an empty or all-masked map), as a device int32.
+    The kernel on a CUDA tensor, torch ops on a CPU one (the same bits)."""
+    if use_kernel(points):
+        return knn_map_cuda(points, p_mask)
+    return knn_map_plain(points, p_mask)
+
+
+def knn_lanes_schedule(queries, points, k: int = 5, p_mask=None, q_mask=None,
+                       lanes: int = LANES):
+    """The B1/B2 search's plain version (CPU tests): the same prepared map
+    (``points`` as a :class:`KnnMap`, or raw points prepared here) walked up
+    to its bound; lane l of a query takes the rows r ≡ l (mod ``lanes``) in
+    ascending order and keeps their top-k by (d², row), an unfilled slot
+    (+inf, 0); the lanes' lists are merged by (d², row). Equals :func:`knn`
+    bit for bit."""
+    kmap = points if isinstance(points, KnnMap) else knn_map_plain(points, p_mask)
+    n = min(int(kmap.bound[0]), kmap.n_points)
+    Q, dev, dtype = queries.shape[0], queries.device, queries.dtype
+    inf = float("inf")
+    qx, qy, qz = (queries[:, j:j + 1] for j in range(3))
+    lists_d, lists_i = [], []
+    for lane in range(lanes):
+        rows = torch.arange(lane, max(n, lane), lanes, device=dev)
+        d = torch.full((Q, k), inf, dtype=dtype, device=dev)
+        i = torch.zeros((Q, k), dtype=torch.int64, device=dev)
+        if rows.numel():
+            dl = _sq_dist(qx, qy, qz, kmap.pts4[rows][None])
+            o = torch.argsort(dl, dim=1, stable=True)[:, :k]  # rows ascend: (d², row)
+            m = o.shape[1]
+            d[:, :m] = torch.gather(dl, 1, o)
+            i[:, :m] = torch.where(torch.isfinite(d[:, :m]), rows[o], 0)
+        lists_d.append(d)
+        lists_i.append(i)
+    cat_d, cat_i = torch.cat(lists_d, dim=1), torch.cat(lists_i, dim=1)
+    o = torch.argsort(cat_i, dim=1, stable=True)  # then by d: the (d², row) order
+    cat_d, cat_i = torch.gather(cat_d, 1, o), torch.gather(cat_i, 1, o)
+    o = torch.argsort(cat_d, dim=1, stable=True)[:, :k]
+    best_d, best_i = torch.gather(cat_d, 1, o), torch.gather(cat_i, 1, o)
+    if q_mask is not None:
+        best_d = torch.where(q_mask[:, None], best_d, inf)
+    return best_d, torch.where(torch.isfinite(best_d), best_i, 0)
+
+
+def _check_search(queries, kmap: KnnMap, k: int, q_mask):
+    _check_cloud(queries, q_mask, "queries")
+    P = kmap.n_points
+    if (kmap.pts4.device != queries.device or kmap.pts4.dtype != torch.float32
+            or kmap.pts4.shape != (P, 4) or not kmap.pts4.is_contiguous()
+            or kmap.bound.device != queries.device or kmap.bound.dtype != torch.int32
+            or kmap.bound.shape != (1,)):
+        raise ValueError("the map must be prepared by knn_map on the queries' device")
+    _check_k(k)
+
+
+def launch_kernel(queries, kmap: KnnMap, q_mask, k: int):
+    """One launch of the search on the current stream; allocates the outputs
+    only."""
+    Q, dev = queries.shape[0], queries.device
     out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int64, device=dev)
-    err = _library()(queries.data_ptr(), pts4.data_ptr(),
-                     None if q_mask is None else q_mask.data_ptr(),
-                     None if n_pts is None else n_pts.data_ptr(),
-                     P, Q, k, out_d.data_ptr(), out_i.data_ptr(),
-                     cuda_build.stream_ptr(dev))
-    _raise_on(err, "knn")
+    _raise_on(_library()["f32"](
+        queries.data_ptr(), None if q_mask is None else q_mask.data_ptr(), Q,
+        kmap.pts4.data_ptr(), kmap.bound.data_ptr(), kmap.n_points, k,
+        out_d.data_ptr(), out_i.data_ptr(),
+        cuda_build.stream_ptr(dev)), "knn")
     return out_d, out_i
 
 
-def _launch(queries, points, k, p_mask, q_mask, counted: bool):
-    out_d, out_i = launch_kernel(*kernel_inputs(queries, points, k, p_mask, q_mask,
-                                                counted), k)
-    LAUNCHES["knn_counted" if counted else "knn_dense", queries.shape[0],
-             points.shape[0], k] += 1
-    if not counted and q_mask is not None:
-        out_d = torch.where(q_mask[:, None], out_d, float("inf"))
-        out_i = torch.where(q_mask[:, None], out_i, 0)
-    return out_d, out_i
+def _search(name: str, queries, points, k, p_mask, q_mask):
+    if isinstance(points, KnnMap):
+        if p_mask is not None:
+            raise ValueError("a KnnMap carries its mask: pass p_mask=None")
+        kmap = points
+    else:
+        kmap = knn_map_cuda(points, p_mask)
+    _check_search(queries, kmap, k, q_mask)
+    out = launch_kernel(queries, kmap, q_mask, k)
+    LAUNCHES[name, queries.shape[0], kmap.n_points, k] += 1
+    return out
 
 
 def knn_counted_cuda(queries, points, k: int = 5, p_mask=None, q_mask=None):
-    """The count-bounded kernel (replaces ``knn_pallas_counted``): walks the
-    map only up to its last valid row and skips blocks of invalid queries."""
-    return _launch(queries, points, k, p_mask, q_mask, counted=True)
+    """B1 (replaces ``knn_pallas_counted``): the search walks the map up to
+    its last valid row and skips blocks of invalid queries. ``points`` is the
+    map as (P, 3) points with ``p_mask``, prepared here (then a call is two
+    launches), or a :class:`KnnMap` from :func:`knn_map` (one launch)."""
+    return _search("knn_counted", queries, points, k, p_mask, q_mask)
 
 
 def knn_dense_cuda(queries, points, k: int = 5, p_mask=None, q_mask=None):
-    """The dense launch (replaces ``knn_pallas``): the same kernel over the
-    whole map capacity with every query active."""
-    return _launch(queries, points, k, p_mask, q_mask, counted=False)
+    """B2 (replaces ``knn_pallas``, taken for P > 65536 or without a mask):
+    the same search and the same result as :func:`knn_counted_cuda`, under
+    its own launch name. The walk is bounded by the prepared bound as well
+    (the map's row count without a mask)."""
+    return _search("knn_dense", queries, points, k, p_mask, q_mask)
 
 
 # --- B3: Morton-sorted, bound-pruned search ------------------------------
@@ -553,17 +652,22 @@ def _takes_pruned(queries) -> bool:
     return use_kernel(queries) and pruned_enabled()
 
 
+def _dense_route(n_points: int, masked: bool):
+    """B1's or B2's wrapper, as the JAX dispatch picks its Pallas kernels:
+    count-bounded when a mask is given and P ≤ 65536, dense otherwise (the
+    same result; the launch name keeps each TPU kernel's counterpart)."""
+    return knn_counted_cuda if n_points <= COUNTED_MAX_P and masked else knn_dense_cuda
+
+
 def knn_auto(queries, points, k: int = 5, p_mask=None, q_mask=None):
     """Device-dispatching kNN: a CUDA kernel for CUDA tensors — the pruned
-    one under ``LILI_OM_KNN_PRUNED=1``, else count-bounded when a mask is
-    given and P ≤ 65536 and dense otherwise, as the JAX dispatch picks its
-    Pallas kernels — and the plain version for CPU tensors."""
+    one under ``LILI_OM_KNN_PRUNED=1``, else B1 or B2 by the JAX rule
+    (:func:`_dense_route`) — and the plain version for CPU tensors."""
     if _takes_pruned(queries):
         return knn_pruned_cuda(queries, points, k, p_mask, q_mask)
     if use_kernel(queries):
-        if points.shape[0] <= COUNTED_MAX_P and (p_mask is not None or q_mask is not None):
-            return knn_counted_cuda(queries, points, k, p_mask, q_mask)
-        return knn_dense_cuda(queries, points, k, p_mask, q_mask)
+        masked = p_mask is not None or q_mask is not None
+        return _dense_route(points.shape[0], masked)(queries, points, k, p_mask, q_mask)
     if queries.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kNN for device {queries.device}")
     return knn(queries, points, k=k, q_mask=q_mask, p_mask=p_mask)
@@ -572,13 +676,18 @@ def knn_auto(queries, points, k: int = 5, p_mask=None, q_mask=None):
 def searcher(points, p_mask, queries, q_mask):
     """``search(pw, k)``: :func:`knn_auto` of a moving copy ``pw`` of
     ``queries`` (rows and mask kept) against one fixed map, as ICP searches.
-    Where the search takes the pruned kernel (the switch read once, here),
-    the map is prepared and the queries' Morton order taken once, in their
-    own frame (a rigid motion keeps Morton neighbours close; any order is
-    exact, only the pruning depends on it), so each search is one launch."""
+    On the card the map is prepared once, here, for the kernel the searches
+    take (the switch read once): B3's map and the queries' Morton order,
+    taken in their own frame (a rigid motion keeps Morton neighbours close;
+    any order is exact, only the pruning depends on it), or B1/B2's
+    :class:`KnnMap`. Each search is then one launch."""
     if _takes_pruned(queries):
         pmap, order = pruned_map(points, p_mask), query_order(queries, q_mask)
         return lambda pw, k: knn_pruned_cuda(pw, pmap, k, q_mask=q_mask, q_order=order)
+    if use_kernel(queries):
+        search = _dense_route(points.shape[0], p_mask is not None or q_mask is not None)
+        kmap = knn_map(points, p_mask)
+        return lambda pw, k: search(pw, kmap, k, q_mask=q_mask)
     return lambda pw, k: knn_auto(pw, points, k=k, p_mask=p_mask, q_mask=q_mask)
 
 

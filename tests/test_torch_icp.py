@@ -8,9 +8,10 @@ the JAX kNN expands ‖q‖²+‖p‖²−2q·p around the map centroid — but 
 candidates of these clouds lie that close), so the transforms and scores
 differ by rounding only.
 
-The pruned route (B3 with the target prepared once) is held against the
-plain route bit for bit on the CPU, with the dispatch and the launch routed
-to the kernel's plain schedule.
+The pruned route (B3 with the target prepared once) and the B1 route (the
+target prepared once as a ``KnnMap``) are held against the plain route bit
+for bit on the CPU, with the dispatch and the launch routed to each
+kernel's plain schedule.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -131,3 +132,43 @@ def test_pruned_route_equals_plain_route(monkeypatch, n_iters):
     for f in icp_mod.IcpResult._fields:
         assert torch.equal(getattr(pruned, f), getattr(plain, f)), f
     assert calls == {"map": 1, "order": 1, "search": n_iters + 1}
+
+
+@pytest.mark.parametrize("n_iters", [0, 6])
+def test_b1_route_prepares_the_map_once(monkeypatch, n_iters):
+    """ICP through B1's prepared route (``K.searcher`` with the pruned switch
+    unset), with the dispatch patched to the card's route, the preparation
+    to ``knn_map_plain`` and the launch to ``knn_lanes_schedule``: the same
+    IcpResult bits as the plain route, one map prepared per call, and one
+    B1 launch per iteration plus the fitness search."""
+    pts = _cloud(4)
+    rng = np.random.default_rng(4)
+    src = np.concatenate([pts[1::2] + rng.normal(scale=0.01, size=(300, 3))
+                          + np.array([-0.15, 0.1, 0.05]), np.zeros((20, 3))])
+    tgt = np.concatenate([pts, np.full((30, 3), 2.0)])
+    args = (tt(src, torch.float32), tt(np.arange(len(src)) < 300), tt(tgt, torch.float32),
+            tt(np.arange(len(tgt)) < len(pts)), torch.zeros(3), torch.tensor([1.0, 0, 0, 0]))
+    plain = ticp(*args, n_iters=n_iters)
+
+    calls = {"map": 0, "search": 0}
+
+    def prepare(points, p_mask=None):
+        calls["map"] += 1
+        return K.knn_map_plain(points, p_mask)
+
+    def schedule(queries, kmap, q_mask, k):
+        calls["search"] += 1
+        return K.knn_lanes_schedule(queries, kmap, k, q_mask=q_mask)
+
+    monkeypatch.delenv("LILI_OM_KNN_PRUNED", raising=False)
+    monkeypatch.setattr(K, "use_kernel", lambda x: True)
+    monkeypatch.setattr(K, "knn_map", prepare)
+    monkeypatch.setattr(K, "_check_search", lambda *a: None)
+    monkeypatch.setattr(K, "launch_kernel", schedule)
+    K.reset_launch_counts()
+    b1 = ticp(*args, n_iters=n_iters)
+    assert bool(torch.isfinite(plain.fitness)) and int(plain.n_matched) > 0
+    for f in icp_mod.IcpResult._fields:
+        assert torch.equal(getattr(b1, f), getattr(plain, f)), f
+    assert calls == {"map": 1, "search": n_iters + 1}
+    assert K.launch_count("knn_counted") == n_iters + 1 and K.launch_count() == n_iters + 1

@@ -1,7 +1,9 @@
 """ops/knn: the port's plain kNN against the JAX package's ``knn`` and its two
 Pallas kernels in interpret mode (``knn_pallas_counted``, ``knn_pallas``),
-the contract cases, the device dispatch, and — on a machine with a GPU — the
-CUDA kernel against the plain version."""
+the contract cases, the device dispatch, the B1/B2 kernel's plain schedule
+(``knn_lanes_schedule``: lane shares merged by (d², index)) and prepared map
+(``knn_map_plain``) against the plain version, and — on a machine with a
+GPU — the CUDA kernels against the plain versions."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -158,6 +160,83 @@ def test_auto_dispatch_on_cpu_runs_the_plain_version():
     assert K.launch_count() == 0
 
 
+def _schedule_case(case, dtype, rng):
+    """(queries, points, p_mask, q_mask, k) of one contract case of the
+    lanes schedule."""
+    if case == "ties":
+        # integer grids: most distances tie, across lanes and within them
+        q = rng.integers(-3, 4, (120, 3))
+        p = rng.integers(-3, 4, (900, 3))
+        pm, qm, k = None, None, 8
+    else:
+        q, p, _ = _cloud(11, nq=150, npts=1200)
+        pm = rng.uniform(size=1200) > 0.4
+        pm[1000:] = False  # valid rows front-compacted, with holes
+        qm = rng.uniform(size=150) > 0.3
+        k = 5
+        if case == "all_masked":
+            pm[:] = False
+        elif case == "k_above_valid":
+            pm[:] = False
+            pm[[3, 40, 41, 777]] = True
+    t = lambda a: torch.as_tensor(a, dtype=dtype)
+    return (t(q), t(p), None if pm is None else torch.as_tensor(pm),
+            None if qm is None else torch.as_tensor(qm), k)
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+@pytest.mark.parametrize("case", ["ties", "masked", "all_masked", "k_above_valid"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lanes_schedule_matches_plain(dtype, case, lanes):
+    """The B1/B2 kernel's schedule (each lane's strided rows, its own top-k,
+    the lists merged by (d², index)) equals the plain kNN bit for bit, in
+    both float types: with ties across lanes, masked rows, an all-masked map,
+    fewer valid points than k and invalid query rows."""
+    q, p, pm, qm, k = _schedule_case(case, dtype, np.random.default_rng(lanes))
+    d, i = K.knn_lanes_schedule(q, p, k, p_mask=pm, q_mask=qm, lanes=lanes)
+    rd, ri = K.knn(q, p, k=k, p_mask=pm, q_mask=qm)
+    assert torch.equal(d, rd) and torch.equal(i, ri)
+    if case == "ties":
+        assert int((d[:, 1:] == d[:, :-1]).sum()) > 100
+    if case == "k_above_valid":
+        rows = torch.isfinite(d).sum(dim=1)
+        assert int(rows.max()) == 4 and torch.all(i[:, 4:] == 0)
+
+
+def test_knn_map_plain_rows_and_bound():
+    """The prepared map: float4 rows with the mask as lane 3 (0 / +inf), and
+    the walk bound one past the last valid row, the row count without a
+    mask, 0 for an all-masked or empty map; the schedule on the prepared map
+    equals the one on raw points."""
+    _, p, rng = _cloud(12, nq=8, npts=300)
+    pt = torch.as_tensor(p, dtype=torch.float32)
+    pm = torch.as_tensor(rng.uniform(size=300) > 0.5)
+    pm[251:] = False
+    pm[250] = True
+    m = K.knn_map_plain(pt, pm)
+    assert m.n_points == 300 and m.bound.dtype == torch.int32 and m.bound.tolist() == [251]
+    assert torch.equal(m.pts4[:, :3], pt)
+    assert torch.equal(m.pts4[:, 3], torch.where(pm, 0.0, float("inf")))
+    assert K.knn_map_plain(pt).bound.tolist() == [300]
+    assert torch.all(K.knn_map_plain(pt).pts4[:, 3] == 0.0)
+    assert K.knn_map_plain(pt, torch.zeros(300, dtype=torch.bool)).bound.tolist() == [0]
+    assert K.knn_map_plain(pt[:0], pm[:0]).bound.tolist() == [0]
+    qt = torch.as_tensor(rng.normal(size=(40, 3)) * 5.0, dtype=torch.float32)
+    a = K.knn_lanes_schedule(qt, m, 5, lanes=8)
+    b = K.knn_lanes_schedule(qt, pt, 5, p_mask=pm, lanes=8)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    # the knn_map dispatcher takes the plain version on a CPU tensor
+    K.reset_launch_counts()
+    c = K.knn_map(pt, pm)
+    assert all(torch.equal(x, y) for x, y in zip(c[:2], m[:2])) and K.launch_count() == 0
+
+
+def test_prepared_map_carries_its_mask():
+    m = K.knn_map_plain(torch.zeros((8, 3)))
+    with pytest.raises(ValueError):
+        K.knn_counted_cuda(torch.zeros((4, 3)), m, 5, p_mask=torch.ones(8, dtype=torch.bool))
+
+
 @pytest.mark.parametrize("wrapper", ["knn_counted_cuda", "knn_dense_cuda"])
 def test_cuda_wrappers_refuse_cpu_tensors(wrapper):
     """The kernel wrappers never fall back: a CPU tensor raises."""
@@ -190,3 +269,25 @@ def test_cuda_kernel_matches_plain(cuda, counted):
     rd, ri = K.knn(qt, pt, k=5, p_mask=pm, q_mask=qm)
     torch.cuda.synchronize()
     assert torch.equal(d, rd) and torch.equal(i, ri)
+
+
+@pytest.mark.cuda
+def test_cuda_prepared_route_matches_plain(cuda):
+    """On the card: the preparation kernel against ``knn_map_plain``, and
+    both launch names on the prepared map against the plain version (bit
+    for bit)."""
+    q, p, rng = _cloud(6, nq=1000, npts=5000)
+    qt = torch.as_tensor(q, dtype=torch.float32, device=cuda)
+    pt = torch.as_tensor(p, dtype=torch.float32, device=cuda)
+    pm = torch.as_tensor(rng.uniform(size=5000) > 0.5, device=cuda)
+    pm[4001:] = False
+    qm = torch.as_tensor(rng.uniform(size=1000) > 0.3, device=cuda)
+    m = K.knn_map(pt, pm)
+    ref = K.knn_map_plain(pt, pm)
+    torch.cuda.synchronize()
+    assert torch.equal(m.pts4, ref.pts4) and torch.equal(m.bound, ref.bound)
+    rd, ri = K.knn(qt, pt, k=5, p_mask=pm, q_mask=qm)
+    for fn in (K.knn_counted_cuda, K.knn_dense_cuda):
+        d, i = fn(qt, m, 5, q_mask=qm)
+        torch.cuda.synchronize()
+        assert torch.equal(d, rd) and torch.equal(i, ri), fn.__name__

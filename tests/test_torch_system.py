@@ -59,13 +59,17 @@ FUS = dict(window=3, local_map_width=6, kf_surf_cap=2048, kf_edge_cap=1024,
            lidar_const=7.5, max_num_iter=3, imu_cap=64)
 
 
+def make_port_system(**lc):
+    """tests/test_system.py's make_system, the port's side only."""
+    return TSystem(odo_cfg=TO(**ODO), fusion_cfg=TF(**FUS), feat_cfg=TS(surf_cap=2048),
+                   lc_cfg=TLC(**lc), graph_capacity=64, dtype=torch.float64, device=CPU)
+
+
 def make_systems(**lc):
     """tests/test_system.py's make_system, on both sides."""
     j = JSystem(odo_cfg=JO(**ODO), fusion_cfg=JF(**FUS), feat_cfg=JS(surf_cap=2048),
                 lc_cfg=JLC(**lc), graph_capacity=64, dtype=jnp.float64)
-    t = TSystem(odo_cfg=TO(**ODO), fusion_cfg=TF(**FUS), feat_cfg=TS(surf_cap=2048),
-                lc_cfg=TLC(**lc), graph_capacity=64, dtype=torch.float64, device=CPU)
-    return j, t
+    return j, make_port_system(**lc)
 
 
 @pytest.fixture(scope="module")
