@@ -61,8 +61,26 @@ Phases, each printing its own line; any failed check exits non-zero:
    the recorded scan on): ids non-decreasing, two launches bit-identical,
    equal to the plain version on a CPU copy in float32 and float64, its
    times beside the plain version's, ``index_add_``'s and the bound;
-9. with ``--profile``, a ``torch.profiler`` window over a few main-path
-   frames (device busy share, kernels by device time).
+9. runtime: the first 70 scans of the system lap written to a ``.lom``
+   by the port's ``DatasetWriter`` (in a temporary directory, removed at
+   the end), the pruned switch unset; read back with ``read_dataset`` into
+   direct ``process_scan`` calls with a checkpoint after 35 scans; the same
+   log through ``ShardedIngest`` (2 spawned decode processes) into an
+   overlapped ``PipelineRunner`` with the loop thread off, equal to the
+   direct run (bit for bit, or within ``TRAJ_TOL_*`` with the gap
+   printed); the checkpoint loaded into a fresh system and run on, equal to
+   the direct run's end; the pipeline again with the loop thread on (1 s):
+   every scan processed, no worker exception, at least one loop closed by
+   the loop thread, the keyframe RMSE within ``KF_RMSE_TOL_M``, the
+   exported map's median distance to the world's surfaces within
+   ``SUBMAP_SURF_TOL_M``; every run's keyframes archived surf features;
+   ``record_synthetic`` on the card. Each run launches B1 and B4, no
+   B3 and no plain version; it prints the scan rates serial and
+   overlapped, the ``backend`` p50 and the decode time;
+10. with ``--profile``, a ``torch.profiler`` window over a few main-path
+   frames (device busy share, kernels by device time), and in phase 9 a
+   profiler window over one more direct and one more pipeline run (device
+   busy share, the CUDA runtime calls of every thread).
 
 Then one line with the ``kernels`` JSON, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. It imports nothing of the
@@ -72,11 +90,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,11 +106,17 @@ import torch
 from lili_om_tpu_torch import cuda_build
 from lili_om_tpu_torch.device import plain_kernels
 from lili_om_tpu_torch.frame import Frame, bench_configs, sim_scans
+from lili_om_tpu_torch.io.checkpoint import load_system, save_system
+from lili_om_tpu_torch.io.dataset import (DatasetWriter, ImuRecord, ScanRecord, decode_spin,
+                                          read_dataset, record_synthetic)
+from lili_om_tpu_torch.io.pcd import read_pcd
 from lili_om_tpu_torch.models import system as system_mod
 from lili_om_tpu_torch.models.system import LiliOmSystem
 from lili_om_tpu_torch.ops import knn as K
 from lili_om_tpu_torch.ops import segred as SG
 from lili_om_tpu_torch.ops import voxel as voxel_mod
+from lili_om_tpu_torch.runtime.ingest import ShardedIngest
+from lili_om_tpu_torch.runtime.pipeline import PipelineRunner
 from lili_om_tpu_torch.sim.lidar import livox_pattern, simulate_scan, spinning_pattern
 from lili_om_tpu_torch.sim.trajectory import circle_trajectory, pose_at, simulate_imu
 from lili_om_tpu_torch.sim.world import World, make_room_world
@@ -154,6 +181,13 @@ SUBMAP_SURF_TOL_M = 0.25
 # least this share of scans must match surfaces (tests/test_golden_motion.py)
 LIVOX_LINES, LIVOX_PTS = 6, 4000
 ACQUIRED_MIN = 0.9
+# runtime phase: the first RT_SCANS scans of the system lap through a .lom,
+# the checkpoint after RT_SAVE_AT, RT_INGEST_HOSTS spawned decode workers,
+# the loop thread's period in the closure run. The lap first comes back
+# within the loop search radius of its start after time_thres (the system
+# phase's first closure fires at scan 40), so 70 scans leave the loop
+# thread some 30 scans of revisit to close on
+RT_SCANS, RT_SAVE_AT, RT_INGEST_HOSTS, RT_LOOP_PERIOD_S = 70, 35, 2, 1.0
 DEV = "cuda"
 
 
@@ -559,6 +593,15 @@ def sensor_pose_fn(traj, t_sl, q_sl):
     return pose
 
 
+def keyframe_errors(sys_, traj, t0w, q0w):
+    """Each graph keyframe's distance to the simulator's body pose at its
+    stamp (the odometry frame is the first body pose ``t0w, q0w``)."""
+    g_t = sys_.graph.t[:len(sys_.kf_stamps)].double()
+    gt = torch.stack([pose_relative(t0w, q0w, *pose_at(traj, s, device=DEV))[0]
+                      for s in sys_.kf_stamps])
+    return torch.linalg.norm(g_t - gt, dim=1)
+
+
 def system_config():
     """The ``fr_iosb_rot`` preset at full width: odometry, fusion, features,
     IMU noise and loop closure."""
@@ -624,13 +667,8 @@ def system_phase():
         if after:
             i, s, rb = after[0]
             rebuilds.append((s, rb, 1e3 * backend[i]))
-    # graph keyframes against the simulator (the odometry frame is the
-    # first body pose)
     n = len(sys_.kf_stamps)
-    g_t = sys_.graph.t[:n].double()
-    gt = torch.stack([pose_relative(t0w, q0w, *pose_at(traj, s, device=DEV))[0]
-                      for s in sys_.kf_stamps])
-    kf_err = torch.linalg.norm(g_t - gt, dim=1)
+    kf_err = keyframe_errors(sys_, traj, t0w, q0w)
     facts = {"metrics": sys_.metrics.report(),  # throughput read at the lap's end
              "fired": fired, "rebuilds": rebuilds, "lc_ms": lc_ms,
              "kf_rmse": float(torch.sqrt(torch.mean(kf_err ** 2))),
@@ -805,10 +843,7 @@ def livox_phase():
         if prev is not None:
             os.environ["LILI_OM_KNN_PRUNED"] = prev
     n = len(sys_.kf_stamps)
-    g_t = sys_.graph.t[:n].double()
-    gt = torch.stack([pose_relative(t0w, q0w, *pose_at(traj, s, device=DEV))[0]
-                      for s in sys_.kf_stamps])
-    kf_err = torch.linalg.norm(g_t - gt, dim=1)
+    kf_err = keyframe_errors(sys_, traj, t0w, q0w)
     # the odometry against the simulated sensor poses: over the scans the
     # main path runs from rest (what GT_TOL_* bounds) and over the whole lap
     pose_fn = sensor_pose_fn(traj, t_sl, q_sl)
@@ -884,6 +919,313 @@ def check_livox(sys_, host_ms, counts, seg_counts, facts):
           "iterations")
     check(all(w != "knn_pruned" for (w, *_) in counts), "livox: B3 launched")
     check(sum(seg_counts.values()) > 0, "livox: B4 did not launch")
+
+
+class PlainSpy(Patch):
+    """Counts the calls of one plain version (``K.knn``, ``K.knn_map_plain``,
+    ``SG.segment_sum_sorted_plain``): on the card's path none may run."""
+
+    def __init__(self, module, name: str):
+        super().__init__(module, name)
+        self.n = 0
+
+    def __call__(self, *args, **kw):
+        self.n += 1
+        return self.orig(*args, **kw)
+
+
+def counted(run):
+    """``run()`` with every launch count set to 0 just before and read just
+    after, and the plain versions' calls counted. Returns (its result, kNN
+    counts, segment-sum counts, plain calls)."""
+    with (PlainSpy(K, "knn") as p1, PlainSpy(K, "knn_map_plain") as p2,
+          PlainSpy(SG, "segment_sum_sorted_plain") as p3):
+        sync()
+        reset_counts()
+        out = run()
+        sync()
+        counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
+    return out, counts, seg_counts, p1.n + p2.n + p3.n
+
+
+def write_lap_log(path, scans, imu):
+    """The lap as a ``.lom`` through the port's ``DatasetWriter``: the IMU
+    first, then each sweep's returns (xyz, time in the sweep, ring as the
+    line; reflectivity 0, which the spin path does not read).
+
+    ``organize_scan`` (the JAX format's binning, kept for parity) puts a
+    return in column ``int(rel_time * n_cols)`` of float32 values. The
+    simulator times each column's returns at exactly ``c / n_cols``, and
+    where that float32 product rounds below ``c`` the return lands in the
+    column before: holes in every ring, and no surf feature survives them
+    (the extractor needs contiguous rows). So a time whose product
+    rounds low is written a few float32 ulps later (at most 8, < 5e-8 s of
+    the sweep), and every return comes back in its own column. Returns
+    how many returns were moved and by at most how many ulps."""
+    w = DatasetWriter(path)
+    for s, a, g in zip(*(x.cpu().numpy() for x in (imu.stamps, imu.accs, imu.gyrs))):
+        w.write_imu(ImuRecord(float(s), a.astype(np.float32), g.astype(np.float32)))
+    ring = np.broadcast_to(np.arange(SYS_RINGS, dtype=np.int32)[:, None], (SYS_RINGS, SYS_COLS))
+    col = np.arange(SYS_COLS)[None, :]
+    moved, ulps = 0, 0
+    for k, (img, valid, rel) in enumerate(scans):
+        v = valid.cpu().numpy()
+        t = rel.cpu().numpy().astype(np.float32)
+        moved += int(((t * SYS_COLS).astype(np.int64) < col)[v].sum())
+        for step in range(8):
+            low = (t * SYS_COLS).astype(np.int64) < col
+            if not low.any():
+                break
+            t, ulps = np.where(low, np.nextafter(t, np.float32(1)), t), max(ulps, step + 1)
+        check(bool(((t * SYS_COLS).astype(np.int64) == col)[v].all()),
+              f"runtime: scan {k}'s times do not bin into their own columns")
+        w.write_scan(ScanRecord(k * 0.1, img.cpu().numpy()[v].astype(np.float32), t[v],
+                                np.zeros(int(v.sum()), np.float32), ring[v]))
+    w.close()
+    return moved, ulps
+
+
+def fusion_fields(fs) -> dict:
+    """A fusion state as {dotted field: tensor}, the prior's square-root pair
+    (J, r0) as JᵀJ and Jᵀr0 (the eigenvectors' signs are arbitrary)."""
+    out = {}
+    for name, v in fs._asdict().items():
+        if hasattr(v, "_fields"):
+            out.update({f"{name}.{k}": x for k, x in v._asdict().items()})
+        else:
+            out[name] = v
+    J, r0 = out.pop("prior.J"), out.pop("prior.r0")
+    out["prior.JtJ"], out["prior.Jtr0"] = J.T @ J, J.T @ r0
+    return out
+
+
+def run_gap(a, b):
+    """How far system ``a``'s run lies from ``b``'s: (every trajectory entry
+    and fusion-state field bit-equal, largest trajectory gap in m, largest
+    window pose gap in m and rad)."""
+    ta, tb = np.asarray(a.trajectory), np.asarray(b.trajectory)
+    check(ta.shape == tb.shape, f"runtime: trajectories of {ta.shape} and {tb.shape}")
+    fa, fb = fusion_fields(a.fusion_state), fusion_fields(b.fusion_state)
+    equal = bool(np.array_equal(ta, tb)) and all(
+        torch.equal(fa[k], fb[k]) for k in fa)
+    dq = quat_mul(quat_conj(a.fusion_state.q), b.fusion_state.q)
+    return (equal, float(np.abs(ta - tb).max()),
+            float((a.fusion_state.t - b.fusion_state.t).abs().max()),
+            float(2.0 * torch.linalg.norm(dq[:, 1:], dim=1).max()))
+
+
+def check_gap(what, gap):
+    equal, traj_m, win_m, win_rad = gap
+    print(f"[runtime] {what}: {'bit-equal' if equal else 'NOT bit-equal'} (trajectory gap "
+          f"{traj_m:.3e} m, fusion window {win_m:.3e} m / {win_rad:.3e} rad)")
+    check(equal or (max(traj_m, win_m) < TRAJ_TOL_M and win_rad < TRAJ_TOL_RAD),
+          f"runtime: {what} differ by {traj_m:.3e} / {win_m:.3e} m, {win_rad:.3e} rad")
+
+
+def check_runtime_counts(what, counts, seg_counts, plain):
+    print(f"[runtime] {what}: launches B1 {K.launch_count('knn_counted')} (map preparations "
+          f"{K.launch_count('knn_map')}), B2 {K.launch_count('knn_dense')}, B3 "
+          f"{K.launch_count('knn_pruned')}, B4 {sum(seg_counts.values())}; plain calls {plain}; "
+          f"by site { {f'{w}:{q}x{p}:k{k}': n for (w, q, p, k), n in sorted(counts.items())} } "
+          f"{ {f'{n}x{c}->{o}': m for (_, n, c, o), m in sorted(seg_counts.items())} }")
+    check(K.launch_count("knn_counted") > 0 and sum(seg_counts.values()) > 0,
+          f"runtime: {what} launched no B1 or no B4")
+    check(K.launch_count("knn_pruned") == 0, f"runtime: {what} launched B3 with the switch unset")
+    check(plain == 0, f"runtime: {what} ran a plain version {plain} times")
+
+
+def check_runtime_features(what, sys_):
+    """Every keyframe of the run archived surf features: the replayed scans
+    fed the extractor, not only the IMU (on the simulator's noise-free IMU
+    a run without features still tracks the lap)."""
+    n = [len(sys_._kf_cloud_np(i)) for i in range(len(sys_.kf_clouds))]
+    print(f"[runtime] {what}: {len(n)} keyframes, surf features archived per keyframe "
+          f"min {min(n, default=0)} median {int(np.median(n)) if n else 0}")
+    check(len(n) > 0 and min(n) > 0, f"runtime: {what} archived keyframes without surf features")
+
+
+def profile_runtime(label: str, run, wall_s: float):
+    """A ``torch.profiler`` window over one more run of ``run``: the device
+    busy share against the unprofiled ``wall_s``, and the CUDA runtime calls
+    of every thread (count, host time, mean) from CUPTI."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        sync()
+    events = prof.key_averages()
+    dev_s = sum(e.self_device_time_total for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    api = sorted((e for e in events if e.key.startswith(("cuda", "cu"))),
+                 key=lambda e: -e.self_cpu_time_total)[:6]
+    print(f"[runtime] profile, {label}: device busy {dev_s:.3f} s = "
+          f"{100.0 * dev_s / wall_s:.2f} % of the unprofiled {wall_s:.3f} s; CUDA runtime "
+          + "; ".join(f"{e.key} n={e.count} {e.self_cpu_time_total / 1e3:.1f} ms "
+                      f"(mean {e.self_cpu_time_total / max(e.count, 1):.2f} us)" for e in api))
+    return {"device_busy_s": dev_s, "wall_s": wall_s,
+            "api": {e.key: [e.count, e.self_cpu_time_total / 1e3] for e in api}}
+
+
+def runtime_phase(tmp: str, profile: bool = False):
+    """The runtime entry points on the first ``RT_SCANS`` scans of the golden
+    lap at the full ``fr_iosb_rot`` width, the pruned switch unset: the lap
+    into a ``.lom``; a direct run from ``read_dataset`` (a checkpoint after
+    ``RT_SAVE_AT`` scans); the same log through ``ShardedIngest`` (spawned
+    decode processes) into an overlapped ``PipelineRunner`` with the loop
+    thread off; the checkpoint resumed in a fresh system; the pipeline again
+    with the loop thread on, and its map exported and read back. Each run
+    with the launch counts set to 0 just before and read just after. With
+    ``profile``, one more direct and one more pipeline run under the
+    profiler."""
+    cfg = system_config()
+    lc = dataclasses.replace(cfg.loop_closure, time_thres=SYS_LAP_S / 3.0)
+    t0 = time.perf_counter()
+    scans, imu, traj, _, _ = sim_lap(cfg, RT_SCANS)
+    log, ckpt = os.path.join(tmp, "lap.lom"), os.path.join(tmp, "ckpt")
+    moved, ulps = write_lap_log(log, scans, imu)
+    del scans
+    print(f"[runtime] cuts: the first {RT_SCANS} scans of the system lap "
+          f"({SYS_RINGS}x{SYS_COLS}, "
+          f"{os.path.getsize(log) / 2 ** 20:.1f} MiB of log; {moved} returns' times moved by "
+          f"at most {ulps} float32 ulps to bin into their own columns); time_thres "
+          f"{lc.time_thres:.2f} s "
+          f"as the system phase; checkpoint after {RT_SAVE_AT}; sim and log "
+          f"{time.perf_counter() - t0:.2f} s")
+    decode = functools.partial(decode_spin, n_rings=SYS_RINGS, n_cols=SYS_COLS)
+
+    def new_system():
+        s = LiliOmSystem(cfg.odometry, cfg.fusion, cfg.spin_features, cfg.livox_features, lc,
+                         cfg.imu_noise, device=DEV)
+        s.deskew_translation = True
+        return s
+
+    def direct():
+        s, dec_ms, save_s = new_system(), [], 0.0
+        t1 = time.perf_counter()
+        for r in read_dataset(log):
+            if isinstance(r, ImuRecord):
+                s.push_imu(np.array([r.stamp]), r.acc[None], r.gyr[None])
+                continue
+            t2 = time.perf_counter()
+            _, args = decode(r)
+            dec_ms.append(1e3 * (time.perf_counter() - t2))
+            s.process_scan(*args, r.stamp)
+            if s.n_frames == RT_SAVE_AT:
+                sync()
+                t2 = time.perf_counter()
+                save_system(ckpt, s)
+                save_s = time.perf_counter() - t2
+        sync()
+        return s, time.perf_counter() - t1 - save_s, dec_ms, s.metrics.report()
+
+    def pipelined(loop_period):
+        s = new_system()
+        runner = PipelineRunner(s, overlap=True, drop_when_full=False,
+                                loop_period_s=loop_period, scan_period=0.1)
+        runner.start()
+        ingest = ShardedIngest(runner, decode, n_hosts=RT_INGEST_HOSTS, processes=True)
+        t1 = time.perf_counter()
+        try:
+            for r in read_dataset(log):
+                if isinstance(r, ImuRecord):
+                    runner.feed_imu(np.array([r.stamp]), r.acc[None], r.gyr[None])
+                else:
+                    ingest.feed_raw(r, r.stamp)
+            ingest.close()
+        finally:
+            runner.stop(drain=True)
+        sync()
+        return s, runner, time.perf_counter() - t1, s.metrics.report()
+
+    def resumed():
+        s = new_system()
+        load_system(ckpt, s)
+        recs = [r for r in read_dataset(log) if isinstance(r, ScanRecord)]
+        for r in recs[RT_SAVE_AT:]:
+            s.process_scan(*decode(r)[1], r.stamp)
+        return s
+
+    # run_dataset record's simulator, on the card: two 16×720 sweeps and
+    # the IMU over 0.3 s (61 samples at 200 Hz)
+    rec_log = os.path.join(tmp, "record.lom")
+    t0 = time.perf_counter()
+    record_synthetic(rec_log, n_frames=2, device=DEV)
+    recs = list(read_dataset(rec_log))
+    sweeps = [r for r in recs if isinstance(r, ScanRecord)]
+    print(f"[runtime] record_synthetic on {DEV}: {len(recs) - len(sweeps)} IMU records, "
+          f"sweeps of {[len(r.pts) for r in sweeps]} returns, {time.perf_counter() - t0:.2f} s")
+    check(len(sweeps) == 2 and len(recs) == 2 + 61
+          and all(0.9 * 16 * 720 < len(r.pts) <= 16 * 720 and np.isfinite(r.pts).all()
+                  for r in sweeps), "runtime: record_synthetic on the card")
+    (ref, direct_s, dec_ms, direct_rep), *c = counted(direct)
+    check(ref.n_frames == RT_SCANS, f"runtime: the direct run took {ref.n_frames} scans")
+    check_runtime_counts("direct run", *c)
+    check_runtime_features("direct run", ref)
+    (pipe, runner, pipe_s, pipe_rep), *c = counted(lambda: pipelined(1e9))
+    check_runtime_counts("pipeline run", *c)
+    check(runner.n_processed == RT_SCANS and runner.n_dropped == 0,
+          f"runtime: the pipeline took {runner.n_processed} scans, dropped {runner.n_dropped}")
+    check_gap("pipeline run vs direct run", run_gap(pipe, ref))
+    check_runtime_features("pipeline run", pipe)
+    res, *c = counted(resumed)
+    check_runtime_counts("resumed run", *c)
+    check_gap(f"resumed after {RT_SAVE_AT} scans vs direct run", run_gap(res, ref))
+    (lcs, lc_runner, lc_s, lc_rep), *c = counted(lambda: pipelined(RT_LOOP_PERIOD_S))
+    check_runtime_counts("closure run", *c)
+    check_runtime_features("closure run", lcs)
+    check(lc_runner.n_processed == RT_SCANS,
+          f"runtime: the closure run took {lc_runner.n_processed} of {RT_SCANS} scans")
+    t0w, q0w = pose_at(traj, 0.0, device=DEV)
+    kf_err = keyframe_errors(lcs, traj, t0w, q0w)
+    rmse = float(torch.sqrt(torch.mean(kf_err ** 2)))
+    pcd = os.path.join(tmp, "map.pcd")
+    n_map = lcs.export_map(pcd)
+    pts = torch.as_tensor(read_pcd(pcd), dtype=torch.float64, device=DEV)
+    check(pts.shape == (n_map, 3) and n_map > 0, f"runtime: the PCD holds {tuple(pts.shape)}")
+    dist = torch.sort(surface_distance(make_room_world(device=DEV),
+                                       quat_rotate(q0w[None], pts) + t0w[None])).values
+    map_p50 = float(dist[len(dist) // 2])
+    # each report read when its run ended: scans/s from the first scan's
+    # start to that run's end
+    rep = {"direct": direct_rep, "pipeline": pipe_rep, "closure": lc_rep}
+    facts = {"direct_scans_per_s": RT_SCANS / direct_s, "pipeline_scans_per_s": RT_SCANS / pipe_s,
+             "closure_run_scans_per_s": RT_SCANS / lc_s,
+             "frontend_scans_per_s": {k: v["_throughput"]["scans_per_sec"]
+                                      for k, v in rep.items()},
+             "backend_p50_ms": {k: v["backend"]["p50_ms"] for k, v in rep.items()},
+             "odometry_p50_ms": {k: v["odometry"]["p50_ms"] for k, v in rep.items()},
+             "decode_ms_median": float(np.median(dec_ms)), "closures": lc_runner.loop_closures,
+             "lc_rejects": lcs.lc_rejects, "kf_rmse": rmse, "n_kf": len(lcs.kf_stamps),
+             "map_points": n_map, "map_surf_p50": map_p50}
+    fr = facts["frontend_scans_per_s"]
+    print(f"[runtime] scans/s over the whole replay (log reading and decoding included, "
+          f"the decode pool's start too): serial direct {facts['direct_scans_per_s']:.3f}; "
+          f"overlapped pipeline {facts['pipeline_scans_per_s']:.3f}; with the loop thread "
+          f"{facts['closure_run_scans_per_s']:.3f}. From the first scan to the run's end: "
+          f"{fr['direct']:.3f} / {fr['pipeline']:.3f} / {fr['closure']:.3f}")
+    print(f"[runtime] backend p50 ms: direct {facts['backend_p50_ms']['direct']:.3f}, "
+          f"pipeline {facts['backend_p50_ms']['pipeline']:.3f}, closure run "
+          f"{facts['backend_p50_ms']['closure']:.3f}; odometry p50 ms "
+          f"{facts['odometry_p50_ms']['direct']:.3f} / {facts['odometry_p50_ms']['pipeline']:.3f} / "
+          f"{facts['odometry_p50_ms']['closure']:.3f} (a sync ends every stage: in the "
+          f"overlapped runs it also waits for the other threads' kernels); ingest decode "
+          f"(organize_scan) ms median {facts['decode_ms_median']:.3f}")
+    print(f"[runtime] closure run: {lc_runner.n_processed} scans, {facts['n_kf']} keyframes, "
+          f"{lc_runner.loop_closures} closures (rejects {lcs.lc_rejects}), keyframe RMSE "
+          f"{rmse:.4f} m (max {float(kf_err.max()):.4f}); exported map {n_map} points, "
+          f"median distance to the world's surfaces {map_p50:.4f} m")
+    print("[runtime] closure run stage metrics:\n" + lcs.metrics.pretty())
+    if profile:
+        facts["profile"] = {
+            "direct": profile_runtime("serial direct run", direct, direct_s),
+            "pipeline": profile_runtime("overlapped pipeline run", lambda: pipelined(1e9),
+                                        pipe_s)}
+    check(lc_runner.loop_closures >= 1 and int(lcs.graph.n_loops) >= 1,
+          f"runtime: the loop thread closed {lc_runner.loop_closures} loops "
+          f"({int(lcs.graph.n_loops)} loop factors; rejects {lcs.lc_rejects})")
+    check(rmse <= KF_RMSE_TOL_M, f"runtime: keyframe RMSE {rmse:.4f} m")
+    check(map_p50 <= SUBMAP_SURF_TOL_M, f"runtime: the map lies {map_p50:.4f} m off the world")
+    return facts
 
 
 def compare_segred(phase, key, inputs, launches):
@@ -1306,7 +1648,17 @@ def main(argv=None) -> int:
             kernels.append(compare_segred(phase, key, inputs,
                                           seg_counts.get(("segred",) + key[2:], 0)))
 
-    # 9. profile
+    # 9. the runtime entry points, the pruned switch unset
+    prev = os.environ.pop("LILI_OM_KNN_PRUNED", None)
+    tmp = tempfile.mkdtemp(prefix="lili_runtime_")
+    try:
+        rt_facts = runtime_phase(tmp, profile=args.profile)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if prev is not None:
+            os.environ["LILI_OM_KNN_PRUNED"] = prev
+
+    # 10. profile
     if args.profile:
         timed = sorted(host_ms[N_WARM:])
         profile_frames(frame, scans[N_WARM:N_WARM + 5], timed[len(timed) // 2])
@@ -1319,6 +1671,7 @@ def main(argv=None) -> int:
                                   **facts},
                        "livox": {"per_scan_host_ms": lvx_ms, "lc_rejects": lvx_rejects,
                                  **lvx_facts},
+                       "runtime": rt_facts,
                        "kernels": kernels + [unmasked]}, f, indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -28,6 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: dict = {}
+# one build and one load at a time: the runtime's worker threads may reach
+# the same kernel first together
+_LOCK = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -52,31 +56,33 @@ def build(names=None, verbose: bool = False) -> dict:
     ``nvcc`` per source, all started together. ``verbose`` adds
     ``-Xptxas -v`` (registers, shared memory and spills per kernel).
     Returns ``{name: compiler output}`` for the sources it compiled; raises
-    with the compiler's output if any build fails."""
-    names = list(SOURCES) if names is None else list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return logs
+    with the compiler's output if any build fails. Holds the module lock
+    throughout, and names its temporary outputs by process and thread."""
+    with _LOCK:
+        names = list(SOURCES) if names is None else list(names)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}-{threading.get_ident()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-o", str(tmp), str(CSRC / SOURCES[name])]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           tmp, out)
+        logs, failed = {}, []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        return logs
 
 
 def stream_ptr(device: torch.device) -> int:
@@ -87,12 +93,14 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
-    return lib
+    """The loaded library of kernel ``name``, built first if needed; built
+    and loaded once however many threads ask at the same time."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            _LIBS[name] = lib
+        return lib

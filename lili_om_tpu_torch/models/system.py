@@ -24,13 +24,21 @@ stream (line id, time ratio, reflectivity per point) through
 reflectivity channel feed the reflectivity-weighted fusion of the Livox
 presets.
 
-Not ported yet: the global map and its export (``build_global_map``,
-``export_map``, ``map_callback``), and the map-sharded backend (``mesh``).
+The global map (:meth:`LiliOmSystem.build_global_map`,
+:meth:`LiliOmSystem.export_map`) is every archived keyframe's full cloud at
+its graph pose, downsampled on the host; ``map_callback`` receives it at a
+scan-time cadence. The runtime (``runtime/pipeline.py``) drives the
+frontend, the backend and the closures on three threads: the carried
+states are replaced, never written in place, and the IMU buffer is guarded
+by its own lock.
+
+Not ported yet: the map-sharded backend (``mesh``).
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import warnings
 from typing import NamedTuple
 
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..io.pcd import write_pcd
 from ..ops.features_livox import LivoxFeatureConfig, bin_livox_image, extract_features_livox
 from ..ops.features_spin import (SpinFeatureConfig, extract_features_spin, integrate_gyro,
                                  undistort)
@@ -141,6 +150,9 @@ class LiliOmSystem:
         self._imu_stamps = np.zeros((0,))
         self._imu_accs = np.zeros((0, 3))
         self._imu_gyrs = np.zeros((0, 3))
+        # producers push while the backend trims: the three arrays change
+        # together under this lock
+        self._imu_lock = threading.Lock()
         self._last_kf_stamp: float | None = None
         self.scan_period = 0.1
         self.metrics = StageMetrics(
@@ -162,6 +174,14 @@ class LiliOmSystem:
         # a loop closure moved the mature poses: the next fusion step
         # rebuilds its map tables from the ring
         self._maps_dirty = False
+        # cadenced map assembly (the reference's publishCompleteMap thread,
+        # BackendFusion.cpp:2687-2696): ``map_callback`` receives the (N,3)
+        # global map every ``map_publish_period`` seconds of scan time, every
+        # ``mapping_interval``-th keyframe (the presets' mapping_interval)
+        self.map_callback = None
+        self.map_publish_period = 50.0
+        self.mapping_interval = 2
+        self._last_map_pub: float | None = None
 
     def _tensor(self, a, dtype=None):
         """Host array, list or tensor → a tensor on the system's device."""
@@ -188,34 +208,41 @@ class LiliOmSystem:
 
     def push_imu(self, stamps, accs, gyrs):
         """Append IMU samples (monotone stamps), ahead of the scans they cover."""
-        self._imu_stamps = np.concatenate([self._imu_stamps, np.atleast_1d(stamps)])
-        self._imu_accs = np.concatenate([self._imu_accs, np.atleast_2d(accs)])
-        self._imu_gyrs = np.concatenate([self._imu_gyrs, np.atleast_2d(gyrs)])
-        if len(self._imu_stamps) > self.IMU_BACKLOG_CAP:
-            warnings.warn(
-                f"IMU backlog {len(self._imu_stamps)} exceeds {self.IMU_BACKLOG_CAP} "
-                "samples — dropping oldest; early keyframe intervals will integrate no IMU")
-            self._imu_stamps = self._imu_stamps[-self.IMU_BACKLOG_CAP:]
-            self._imu_accs = self._imu_accs[-self.IMU_BACKLOG_CAP:]
-            self._imu_gyrs = self._imu_gyrs[-self.IMU_BACKLOG_CAP:]
+        with self._imu_lock:
+            self._imu_stamps = np.concatenate([self._imu_stamps, np.atleast_1d(stamps)])
+            self._imu_accs = np.concatenate([self._imu_accs, np.atleast_2d(accs)])
+            self._imu_gyrs = np.concatenate([self._imu_gyrs, np.atleast_2d(gyrs)])
+            if len(self._imu_stamps) > self.IMU_BACKLOG_CAP:
+                warnings.warn(
+                    f"IMU backlog {len(self._imu_stamps)} exceeds {self.IMU_BACKLOG_CAP} "
+                    "samples — dropping oldest; early keyframe intervals will integrate no IMU")
+                self._imu_stamps = self._imu_stamps[-self.IMU_BACKLOG_CAP:]
+                self._imu_accs = self._imu_accs[-self.IMU_BACKLOG_CAP:]
+                self._imu_gyrs = self._imu_gyrs[-self.IMU_BACKLOG_CAP:]
+
+    def imu_buffer(self):
+        """(stamps, accs, gyrs) of the unconsumed IMU samples, taken together."""
+        with self._imu_lock:
+            return self._imu_stamps, self._imu_accs, self._imu_gyrs
 
     def _trim_imu(self, before: float):
         """Drop consumed samples (stamp ≤ ``before``)."""
-        n_drop = int(np.searchsorted(self._imu_stamps, before, side="right"))
-        if n_drop > 0:
-            self._imu_stamps = self._imu_stamps[n_drop:]
-            self._imu_accs = self._imu_accs[n_drop:]
-            self._imu_gyrs = self._imu_gyrs[n_drop:]
+        with self._imu_lock:
+            n_drop = int(np.searchsorted(self._imu_stamps, before, side="right"))
+            if n_drop > 0:
+                self._imu_stamps = self._imu_stamps[n_drop:]
+                self._imu_accs = self._imu_accs[n_drop:]
+                self._imu_gyrs = self._imu_gyrs[n_drop:]
 
     def _imu_slice(self, t0: float, t1: float):
         """Samples with t0 < stamp ≤ t1, plus dts (the first from t0)."""
-        s = self._imu_stamps
+        s, accs, gyrs = self.imu_buffer()
         idx = np.where((s > t0) & (s <= t1))[0]
         if len(idx) == 0:
             return None
         stamps = s[idx]
         dts = stamps - np.concatenate([[t0], stamps[:-1]])
-        return dts, self._imu_accs[idx], self._imu_gyrs[idx]
+        return dts, accs[idx], gyrs[idx]
 
     def _padded_imu(self, sl, cap: int):
         """A slice padded to ``cap`` samples as device tensors (dts, accs,
@@ -267,6 +294,7 @@ class LiliOmSystem:
         if out.is_keyframe:
             with self.metrics.stage("backend"):
                 self._on_keyframe(fc, stamp)
+        self._maybe_publish_map(stamp)
         return out
 
     def _odometry(self, surf, surf_mask, stamp: float, starved_hint: str):
@@ -361,6 +389,7 @@ class LiliOmSystem:
         if payload is not None:
             with self.metrics.stage("backend"):
                 self._on_livox_keyframe(payload, stamp)
+        self._maybe_publish_map(stamp)
         return out
 
     def process_keyframe(self, fc, stamp: float):
@@ -372,6 +401,20 @@ class LiliOmSystem:
                 self._on_livox_keyframe(fc, stamp)
             else:
                 self._on_keyframe(fc, stamp)
+        self._maybe_publish_map(stamp)
+
+    def _maybe_publish_map(self, stamp: float):
+        """Call ``map_callback`` with the global map at the publish cadence
+        (scan-time clock; 50 s default = the reference's 0.02 Hz map thread,
+        BackendFusion.cpp:2689)."""
+        if self.map_callback is None:
+            return
+        if self._last_map_pub is None:
+            self._last_map_pub = stamp
+            return
+        if stamp - self._last_map_pub >= self.map_publish_period:
+            self._last_map_pub = stamp
+            self.map_callback(self.build_global_map(interval=self.mapping_interval))
 
     def _on_livox_keyframe(self, p: LivoxKeyframePayload, stamp):
         self._on_keyframe_clouds(p.surf, p.surf_mask, p.surf_refl, p.edge, p.edge_mask, stamp,
@@ -391,10 +434,11 @@ class LiliOmSystem:
             # first keyframe: seed the midpoint chain with the sample at the
             # keyframe stamp (a dt = 0 step that sets acc0/gyr0)
             sl = None
-            if len(self._imu_stamps) > 0:
-                near = np.searchsorted(self._imu_stamps, stamp)
-                j = min(max(near - 1, 0), len(self._imu_stamps) - 1)
-                sl = (np.zeros(1), self._imu_accs[j:j + 1], self._imu_gyrs[j:j + 1])
+            stamps, accs, gyrs = self.imu_buffer()
+            if len(stamps) > 0:
+                near = np.searchsorted(stamps, stamp)
+                j = min(max(near - 1, 0), len(stamps) - 1)
+                sl = (np.zeros(1), accs[j:j + 1], gyrs[j:j + 1])
         else:
             sl = self._imu_slice(self._last_kf_stamp, stamp)
         self._last_kf_stamp = stamp
@@ -705,6 +749,43 @@ class LiliOmSystem:
         new_t[:n0] = solved_t
         new_q[:n0] = solved_q
         self.graph = g._replace(t=self._tensor(new_t), q=self._tensor(new_q))
+
+    # ------------------------------------------------------------------
+    # global map (publishCompleteMap :2644-2685, save_pcd :2697-2722)
+    # ------------------------------------------------------------------
+
+    def build_global_map(self, leaf: float = 0.3, cap: int | None = None, interval: int = 1,
+                         features_only: bool = False) -> np.ndarray:
+        """The global map, (N,3) numpy: every ``interval``-th archived
+        keyframe's full cloud at its (loop-corrected) graph pose ∘ the lidar
+        extrinsic, voxel-downsampled at ``leaf`` on the host with keys of
+        unbounded extent (``voxel_downsample_np``), as the JAX package
+        builds it. ``features_only``: the surf archive instead (sparser).
+        ``cap``: a random subsample of that many points (seed 0)."""
+        archive = self.kf_full_clouds
+        if features_only or len(archive) < len(self.kf_clouds):
+            archive = self.kf_clouds
+        n = len(archive)
+        if n == 0:
+            return np.zeros((0, 3))
+        g_t, g_q = self._graph_poses_np(self.graph, n)
+        parts = [w for i in range(0, n, max(interval, 1))
+                 if len(w := self._world_cloud_np(i, g_t, g_q, archive))]
+        if not parts:
+            return np.zeros((0, 3))
+        out = voxel_downsample_np(np.concatenate(parts), leaf)
+        if cap is not None and len(out) > cap:
+            sel = np.random.default_rng(0).choice(len(out), cap, replace=False)
+            out = out[np.sort(sel)]
+        return out
+
+    def export_map(self, path: str, leaf: float = 0.3) -> int:
+        """Write the global map as a binary PCD at ``path`` (the reference
+        hardcodes its path, BackendFusion.cpp:2718). Returns the point
+        count."""
+        pts = self.build_global_map(leaf=leaf)
+        write_pcd(path, pts)
+        return len(pts)
 
     def _submap(self, lo: int, hi: int, g_t, g_q):
         """World-frame submap of keyframes [lo, hi] (surf + edge features),

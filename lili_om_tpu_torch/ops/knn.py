@@ -35,6 +35,7 @@ import collections
 import ctypes
 import functools
 import os
+import threading
 from typing import NamedTuple
 
 import torch
@@ -51,10 +52,18 @@ COUNTED_MAX_P = 65536
 # kernel launches since the last reset_launch_counts(), keyed by
 # (wrapper name, queries Q, map points P, k): one key per call site of the path
 LAUNCHES: collections.Counter = collections.Counter()
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch(*key):
+    """One launch at ``key``; the runtime launches from several threads."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[key] += 1
 
 
 def reset_launch_counts():
-    LAUNCHES.clear()
+    with _LAUNCHES_LOCK:
+        LAUNCHES.clear()
 
 
 def launch_count(name: str | None = None) -> int:
@@ -198,7 +207,7 @@ def knn_map_cuda(points, p_mask=None) -> KnnMap:
     kmap = launch_map_kernel(points, p_mask, KnnMap(
         torch.empty((P, 4), dtype=torch.float32, device=dev),
         torch.empty((1,), dtype=torch.int32, device=dev), P))
-    LAUNCHES["knn_map", 0, P, 0] += 1
+    count_launch("knn_map", 0, P, 0)
     return kmap
 
 
@@ -283,7 +292,7 @@ def _search(name: str, queries, points, k, p_mask, q_mask):
         kmap = knn_map_cuda(points, p_mask)
     _check_search(queries, kmap, k, q_mask)
     out = launch_kernel(queries, kmap, q_mask, k)
-    LAUNCHES[name, queries.shape[0], kmap.n_points, k] += 1
+    count_launch(name, queries.shape[0], kmap.n_points, k)
     return out
 
 
@@ -420,7 +429,7 @@ def morton_keys_cuda(pts, valid=None) -> torch.Tensor:
     _check_cloud(pts, valid, "points")
     keys = launch_keys_kernel(pts, valid, torch.empty((pts.shape[0],), dtype=torch.int64,
                                                       device=pts.device))
-    LAUNCHES["pruned_keys", 0, pts.shape[0], 0] += 1
+    count_launch("pruned_keys", 0, pts.shape[0], 0)
     return keys
 
 
@@ -465,7 +474,7 @@ def pruned_map_cuda(points, p_mask=None) -> PrunedMap:
         torch.empty((nj, 3), dtype=torch.float32, device=dev),
         torch.empty((nj, 3), dtype=torch.float32, device=dev),
         torch.empty((nj,), dtype=torch.bool, device=dev), P, PRUNED_TILE))
-    LAUNCHES["pruned_scatter", 0, P, 0] += 1
+    count_launch("pruned_scatter", 0, P, 0)
     return pmap
 
 
@@ -643,7 +652,7 @@ def knn_pruned_cuda(queries, points, k: int = 5, p_mask=None, q_mask=None, q_ord
     if q_order is None:
         q_order = torch.sort(morton_keys_cuda(queries, q_mask)).values
     out_d, out_i, _ = launch_pruned_kernel(queries, pmap, q_mask, q_order, k)
-    LAUNCHES["knn_pruned", queries.shape[0], pmap.n_points, k] += 1
+    count_launch("knn_pruned", queries.shape[0], pmap.n_points, k)
     return out_d, out_i
 
 

@@ -7,17 +7,29 @@
 
 with eigenvalues below ``eps`` (1e-8) truncated. The eigenvectors' signs are
 arbitrary, so (J, r₀) are defined up to a sign per row; JᵀJ and Jᵀr₀, all
-that the window solve uses, are not.
+that the window solve uses, are not. A non-finite input gives NaNs, as
+``jnp.linalg.eigh`` does, not an exception: a poisoned fusion state must
+reach the health check (``LiliOmSystem.health_check_and_recover``).
 """
 from __future__ import annotations
 
 import torch
 
 
+def _eigh(M: torch.Tensor):
+    """``torch.linalg.eigh``, or NaNs where it fails to converge (a
+    non-finite ``M``)."""
+    try:
+        return torch.linalg.eigh(M)
+    except torch.linalg.LinAlgError:
+        nan = torch.full_like(M, float("nan"))
+        return nan[0], nan
+
+
 def _eig_pinv_apply(M: torch.Tensor, X: torch.Tensor, eps: float):
     """M⁺·X via the symmetric eigendecomposition with an eigenvalue floor."""
     M = 0.5 * (M + M.T)
-    lam, V = torch.linalg.eigh(M)
+    lam, V = _eigh(M)
     ok = lam > eps
     inv = torch.where(ok, 1.0 / torch.where(ok, lam, torch.ones_like(lam)), 0.0)
     return V @ (inv[:, None] * (V.T @ X))
@@ -34,7 +46,7 @@ def schur_marginalize(H: torch.Tensor, g: torch.Tensor, m: int, eps: float = 1e-
     A = Arr - Arm @ Amm_inv_Amr
     b = gr - Arm @ Amm_inv_gm
     A = 0.5 * (A + A.T)
-    lam, V = torch.linalg.eigh(A)
+    lam, V = _eigh(A)
     ok = lam > eps
     s = torch.sqrt(torch.where(ok, lam, torch.ones_like(lam)))
     sqrt_lam = torch.where(ok, s, 0.0)

@@ -37,6 +37,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -46,10 +47,18 @@ from ..device import use_kernel
 # kernel launches since the last reset_launch_counts(), keyed by
 # ("segred", rows N, channels C, num_out): one key per call-site shape
 LAUNCHES: collections.Counter = collections.Counter()
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launch(*key):
+    """One launch at ``key``; the runtime launches from several threads."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[key] += 1
 
 
 def reset_launch_counts():
-    LAUNCHES.clear()
+    with _LAUNCHES_LOCK:
+        LAUNCHES.clear()
 
 
 def launch_count() -> int:
@@ -168,7 +177,7 @@ def segment_sum_sorted_cuda(payload, seg_id, num_out: int) -> torch.Tensor:
     out = torch.empty((num_out, payload.shape[1]), dtype=payload.dtype,
                       device=payload.device)
     launch_kernel(payload, seg_id, num_out, out)
-    LAUNCHES["segred", payload.shape[0], payload.shape[1], num_out] += 1
+    count_launch("segred", payload.shape[0], payload.shape[1], num_out)
     return out
 
 

@@ -100,3 +100,24 @@ def small_configs():
     port = (TS(**js._asdict()), TO(**jo._asdict()), TF(**jf._asdict()), TN(**jn._asdict()))
     assert isinstance(jo, JO) and isinstance(jf, JF)
     return (js, jo, jf, jn), port
+
+
+def tiny_system():
+    """tests/test_pipeline.py's ``tiny_system`` (16×360 sweeps, caps ≤ 2048,
+    float64), the port's side, on the CPU; its loop closure runs detection
+    but never fires (``time_thres`` 1e9)."""
+    from lili_om_tpu_torch.models.fusion import FusionConfig
+    from lili_om_tpu_torch.models.odometry import OdometryConfig
+    from lili_om_tpu_torch.models.system import LiliOmSystem
+    from lili_om_tpu_torch.ops.features_livox import LivoxFeatureConfig
+    from lili_om_tpu_torch.ops.features_spin import SpinFeatureConfig
+    from lili_om_tpu_torch.utils.config import LoopClosureConfig
+
+    return LiliOmSystem(
+        odo_cfg=OdometryConfig(n_recent_frames=4, scan_cap=1024, query_cap=256, map_cap=2048),
+        fusion_cfg=FusionConfig(window=3, local_map_width=4, kf_surf_cap=1024,
+                                kf_edge_cap=256, map_surf_cap=2048, map_edge_cap=512,
+                                use_reflectivity=False, max_num_iter=2, imu_cap=32),
+        feat_cfg=SpinFeatureConfig(surf_cap=1024), livox_cfg=LivoxFeatureConfig(n_cols=400),
+        lc_cfg=LoopClosureConfig(enabled=True, time_thres=1e9), graph_capacity=32,
+        dtype=torch.float64, device=CPU)

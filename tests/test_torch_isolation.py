@@ -1,8 +1,10 @@
 """The port stands alone: no module of ``lili_om_tpu_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or the JAX package, the package imports
-with ``jax`` made unimportable, and its entry points refuse to drop to the
-CPU on their own."""
+with ``jax`` made unimportable (also in a ``spawn``ed child, as the ingest
+workers start, which must not initialize CUDA), and its entry points refuse
+to drop to the CPU on their own."""
 import ast
+import multiprocessing as mp
 import subprocess
 import sys
 from pathlib import Path
@@ -58,7 +60,41 @@ def test_imports_without_jax():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
+# the modules a spawned ingest worker or a user of the runtime imports
+RUNTIME_MODULES = ["lili_om_tpu_torch.apps.run_bag", "lili_om_tpu_torch.apps.run_dataset",
+                   "lili_om_tpu_torch.io.checkpoint", "lili_om_tpu_torch.io.dataset",
+                   "lili_om_tpu_torch.io.pcd", "lili_om_tpu_torch.io.rosbag",
+                   "lili_om_tpu_torch.io.velodyne", "lili_om_tpu_torch.runtime.ingest",
+                   "lili_om_tpu_torch.runtime.log", "lili_om_tpu_torch.runtime.pipeline",
+                   "lili_om_tpu_torch.utils.timing"]
+
+
+def _import_without_jax(mods):
+    """Run in a spawned child: import ``mods`` with the JAX package made
+    unimportable; report what got imported and whether CUDA was touched."""
+    import importlib
+    import sys
+
+    for m in ("jax", "jaxlib", "lili_om_tpu"):
+        sys.modules[m] = None
+    for m in mods:
+        importlib.import_module(m)
+    import torch
+
+    return (sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "lili_om_tpu")
+                   and sys.modules[m] is not None), torch.cuda.is_initialized())
+
+
+def test_runtime_modules_import_in_a_spawned_child():
+    assert {p.stem for p in (PORT / "runtime").glob("*.py")} - {"__init__"} == \
+        {m.rsplit(".", 1)[1] for m in RUNTIME_MODULES if ".runtime." in m}
+    with mp.get_context("spawn").Pool(1) as pool:
+        leaked, cuda = pool.apply(_import_without_jax, (RUNTIME_MODULES,))
+    assert leaked == [] and cuda is False
+
+
 def _entry_points():
+    from lili_om_tpu_torch.apps import run_bag, run_dataset
     from lili_om_tpu_torch.frame import Frame, bench_configs, sim_scans
     from lili_om_tpu_torch.models.fusion import fusion_step, init_fusion_state
     from lili_om_tpu_torch.models.odometry import init_state, odometry_step
@@ -87,6 +123,9 @@ def _entry_points():
         "sim_scans": lambda: sim_scans(1, rings=4, cols=60),
         "LiliOmSystem": lambda: LiliOmSystem(),
         "init_graph": lambda: init_graph(8),
+        "run_dataset record": lambda: run_dataset.main(["record", "missing.lom", "1"]),
+        "run_dataset play": lambda: run_dataset.main(["play", "missing.lom"]),
+        "run_bag": lambda: run_bag.main(["missing.bag", "--preset", "synthetic"]),
     }
 
 
