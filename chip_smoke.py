@@ -77,7 +77,23 @@ Phases, each printing its own line; any failed check exits non-zero:
    ``record_synthetic`` on the card. Each run launches B1 and B4, no
    B3 and no plain version; it prints the scan rates serial and
    overlapped, the ``backend`` p50 and the decode time;
-10. with ``--profile``, a ``torch.profiler`` window over a few main-path
+10. multichip: ``LiliOmSystem(mesh=…)`` at the whole ``fr_iosb_rot``
+   preset on the runtime phase's 70 lap scans, closures every 10 scans,
+   the pruned switch unset. (a) NCCL at world size 1: equal to the
+   single-card system with ``incremental_map=False`` (bit for bit, or within
+   ``TRAJ_TOL_*``), keyframe RMSE of both it and the default system within
+   ``KF_RMSE_TOL_M``. (b) two gloo ranks on the card (NCCL refuses two ranks
+   on one device), spawned: every rank's keyframes within 0.05 m of (a),
+   the ranks' replicated-state digests equal, B1 (with its map
+   preparation) at the sharded odometry and both map-shard searches and B4
+   at both map-shard builds on every rank, no B3 and no plain version; and
+   ``sharded_knn`` over a map whose second block is all invalid, equal to
+   the plain search. Then B1 and B4 against their plain versions at the
+   mesh sites: world 1's and rank 0's inputs from scan 40 on, rank 1's
+   first calls (its map shards empty: zero walk bounds), and each rank's
+   ``sharded_knn`` block. Per-scan times, the ``backend`` p50 and the
+   fusion's per-keyframe ``all_gather`` (bytes, CUDA-event time) of each run;
+11. with ``--profile``, a ``torch.profiler`` window over a few main-path
    frames (device busy share, kernels by device time), and in phase 9 a
    profiler window over one more direct and one more pipeline run (device
    busy share, the CUDA runtime calls of every thread).
@@ -102,6 +118,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from lili_om_tpu_torch import cuda_build
 from lili_om_tpu_torch.device import plain_kernels
@@ -115,6 +133,8 @@ from lili_om_tpu_torch.models.system import LiliOmSystem
 from lili_om_tpu_torch.ops import knn as K
 from lili_om_tpu_torch.ops import segred as SG
 from lili_om_tpu_torch.ops import voxel as voxel_mod
+from lili_om_tpu_torch.parallel import map_fusion as map_fusion_mod
+from lili_om_tpu_torch.parallel.sharded import make_mesh, sharded_knn
 from lili_om_tpu_torch.runtime.ingest import ShardedIngest
 from lili_om_tpu_torch.runtime.pipeline import PipelineRunner
 from lili_om_tpu_torch.sim.lidar import livox_pattern, simulate_scan, spinning_pattern
@@ -188,6 +208,18 @@ ACQUIRED_MIN = 0.9
 # phase's first closure fires at scan 40), so 70 scans leave the loop
 # thread some 30 scans of revisit to close on
 RT_SCANS, RT_SAVE_AT, RT_INGEST_HOSTS, RT_LOOP_PERIOD_S = 70, 35, 2, 1.0
+# multichip phase: the runtime phase's scans of the lap, closures every
+# LC_EVERY scans, 2 gloo ranks sharing the card (NCCL refuses two ranks on
+# one device). The 2-rank run deduplicates voxels per rank where a voxel
+# spans two ranks' keyframes: its keyframes are held to the world-1 run's
+# within MC_SHARD_TOL_M (tests/test_sharded_frontend.py's bound). Its sites
+# are recorded twice: at each site's first call (the map shards of an
+# empty ring: zero walk bounds) and from scan MC_RECORD_FROM on (grown).
+# The sharded_knn check: MC_KNN_Q queries against MC_KNN_P points, the
+# second rank's block all invalid
+MC_SCANS, MC_RANKS, MC_SHARD_TOL_M, MC_RECORD_FROM = RT_SCANS, 2, 0.05, SYS_RECORD_FROM
+MC_KNN_Q, MC_KNN_P = 4096, 65536
+MC_JOIN_S = 900
 DEV = "cuda"
 
 
@@ -596,10 +628,14 @@ def sensor_pose_fn(traj, t_sl, q_sl):
 def keyframe_errors(sys_, traj, t0w, q0w):
     """Each graph keyframe's distance to the simulator's body pose at its
     stamp (the odometry frame is the first body pose ``t0w, q0w``)."""
-    g_t = sys_.graph.t[:len(sys_.kf_stamps)].double()
+    return graph_errors(sys_.graph.t[:len(sys_.kf_stamps)], sys_.kf_stamps, traj, t0w, q0w)
+
+
+def graph_errors(g_t, stamps, traj, t0w, q0w):
+    """:func:`keyframe_errors` of graph positions ``g_t`` at ``stamps``."""
     gt = torch.stack([pose_relative(t0w, q0w, *pose_at(traj, s, device=DEV))[0]
-                      for s in sys_.kf_stamps])
-    return torch.linalg.norm(g_t - gt, dim=1)
+                      for s in stamps])
+    return torch.linalg.norm(torch.as_tensor(g_t, device=DEV).double() - gt, dim=1)
 
 
 def system_config():
@@ -1482,6 +1518,314 @@ def profile_frames(frame: Frame, scans, wall_ms: float):
     print(events.table(sort_by="self_device_time_total", row_limit=25))
 
 
+class GatherSpy(Patch):
+    """Wraps the map-sharded fusion's ``all_gather_cat`` (one call per
+    keyframe): the bytes this rank sends, and each call's time by CUDA
+    events and by the host clock (the card synchronized before and after)."""
+
+    def __init__(self):
+        super().__init__(map_fusion_mod, "all_gather_cat")
+        self.bytes, self.event_ms, self.host_ms = [], [], []
+
+    def __call__(self, mesh, x, dim=0):
+        sync()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        out = self.orig(mesh, x, dim)
+        b.record()
+        b.synchronize()
+        self.host_ms.append(1e3 * (time.perf_counter() - t0))
+        self.event_ms.append(a.elapsed_time(b))
+        self.bytes.append(x.numel() * x.element_size())
+        return out
+
+
+def mesh_sites(cfg, n: int):
+    """{(Q, P): call site} of the B1 searches of an ``n``-rank mesh system,
+    and the (N, C, num_out) of its two map-shard builds (B4)."""
+    odo, fus = cfg.odometry, cfg.fusion
+    W, Mp = fus.window, fus.local_map_width + (-fus.local_map_width) % n
+    rnd = lambda x: -(-x // n) * n  # noqa: E731
+    scap, ecap = rnd(fus.map_surf_cap) // n, rnd(fus.map_edge_cap) // n
+    knn = {(odo.query_cap // n, odo.map_cap): "odometry",
+           (W * fus.kf_surf_cap, scap): "fusion_surf", (W * fus.kf_edge_cap, ecap): "fusion_edge"}
+    seg = {(Mp // n * fus.kf_surf_cap, 5, scap): "map_shard_surf",
+           (Mp // n * fus.kf_edge_cap, 4, ecap): "map_shard_edge"}
+    return knn, seg
+
+
+def mesh_lap(mesh, scans, imu, cfg, lc, record: bool = True):
+    """``LiliOmSystem(mesh=mesh)`` (or the single-card system for ``mesh``
+    None) over the lap at the whole preset, ``try_loop_closure`` every
+    ``LC_EVERY`` scans, with every launch count set to 0 just before and read
+    just after, and the plain versions' calls counted. With ``record``, the
+    inputs of each B1 site's first call and of its first call from scan
+    ``MC_RECORD_FROM`` on, and of each B4 site from then on, are copied, and
+    the fusion's gathers timed. Returns the run's facts (host copies)."""
+    sys_ = LiliOmSystem(cfg.odometry, cfg.fusion, cfg.spin_features, cfg.livox_features, lc,
+                        cfg.imu_noise, mesh=mesh, device=None if mesh is not None else DEV)
+    sys_.deskew_translation = True
+    sys_.push_imu(imu.stamps.cpu().numpy(), imu.accs.cpu().numpy(), imu.gyrs.cpu().numpy())
+    host_ms, fired = [], []
+    with (Recorder("knn_counted_cuda", armed=record) as first,
+          Recorder("knn_counted_cuda", armed=False) as grown,
+          SegRecorder(armed=False) as seg, GatherSpy() as gather,
+          PlainSpy(K, "knn") as p1, PlainSpy(K, "knn_map_plain") as p2,
+          PlainSpy(SG, "segment_sum_sorted_plain") as p3):
+        sync()
+        reset_counts()
+        for k, (img, valid, rel) in enumerate(scans):
+            grown.armed = seg.armed = record and k >= MC_RECORD_FROM
+            first.armed = record and k < MC_RECORD_FROM
+            t1 = time.perf_counter()
+            sys_.process_scan(img, valid, rel, k * 0.1)
+            sync()
+            host_ms.append(1e3 * (time.perf_counter() - t1))
+            if k % LC_EVERY == 0 and k > 0 and sys_.try_loop_closure():
+                fired.append(k)
+        sync()
+        counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
+    n_kf = len(sys_.kf_stamps)
+    cpu = lambda v: tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in v)  # noqa: E731
+    facts = {"host_ms": host_ms, "fired": fired, "counts": counts, "seg_counts": seg_counts,
+             "plain_calls": p1.n + p2.n + p3.n,
+             "backend_p50_ms": sys_.metrics.report()["backend"]["p50_ms"],
+             "trajectory": np.asarray(sys_.trajectory), "kf_stamps": list(sys_.kf_stamps),
+             "graph_t": sys_.graph.t[:n_kf].cpu(), "n_loops": int(sys_.graph.n_loops),
+             "lc_rejects": dict(sys_.lc_rejects),
+             "first": {k: cpu(v) for k, v in first.seen.items()
+                       if not isinstance(v[1], K.KnnMap)},
+             "grown": {k: cpu(v) for k, v in grown.seen.items()
+                       if not isinstance(v[1], K.KnnMap)},
+             "seg": {k: cpu(v) for k, v in seg.seen.items()},
+             "gather": (gather.bytes, gather.event_ms, gather.host_ms),
+             "configs": (sys_.odo_cfg._asdict(), sys_.fusion_cfg._asdict())}
+    if mesh is not None:
+        facts["replicated"] = sys_.check_replicated()
+        facts["digest"] = sys_.replicated_digest()
+    return facts
+
+
+def multichip_rank(rank: int, n: int, tmp: str):
+    """One rank of the multichip phase's gloo world on ``cuda:0``: the lap
+    through ``mesh_lap``, then ``sharded_knn`` on the check's map (B1 on this
+    rank's block, its input recorded, the counts set to 0 just before and
+    read just after); its facts to ``tmp/rank{rank}.pt``."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/gloo_rendezvous",
+                            world_size=n, rank=rank)
+    try:
+        mesh = make_mesh(n, axis="kf")
+        data = torch.load(os.path.join(tmp, "lap.pt"), weights_only=False)
+        scans = [tuple(x.to(DEV) for x in s) for s in data["scans"]]
+        imu = data["imu"]
+        facts = mesh_lap(mesh, scans, imu, data["cfg"], data["lc"])
+        q, p, m = (data[k].to(DEV) for k in ("knn_q", "knn_p", "knn_mask"))
+        with Recorder("knn_counted_cuda") as rec:
+            sync()
+            reset_counts()
+            d, i = sharded_knn(mesh, q, p, m, k=5)
+            sync()
+            facts["knn"] = (d.cpu(), i.cpu(), dict(K.LAUNCHES),
+                            {k: tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in v)
+                             for k, v in rec.seen.items()})
+        torch.save(facts, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(n: int, tmp: str):
+    """``multichip_rank`` on ``n`` spawned processes; waits at most
+    ``MC_JOIN_S`` seconds and stops them all then. Returns their facts."""
+    ctx = mp.spawn(multichip_rank, args=(n, tmp), nprocs=n, join=False)
+    deadline = time.monotonic() + MC_JOIN_S
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline, f"multichip: the {n} ranks ran over {MC_JOIN_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(n)]
+
+
+def to_dev(v):
+    return tuple(x.to(DEV) if isinstance(x, torch.Tensor) else x for x in v)
+
+
+def print_lap(label, f):
+    timed = sorted(f["host_ms"][N_WARM:])
+    b, ev, host = f["gather"]
+    gat = (f"; fusion all_gather per keyframe: {b[0] if b else 0} bytes sent by this rank, "
+           f"{len(b)} calls, median {np.median(ev) if ev else float('nan'):.4f} ms by CUDA "
+           f"events ({np.median(host) if host else float('nan'):.4f} ms host, synchronized)")
+    print(f"[multichip] {label}: {len(f['host_ms'])} scans, {len(f['kf_stamps'])} keyframes: "
+          f"per-scan host ms median {timed[len(timed) // 2]:.3f} min {timed[0]:.3f} max "
+          f"{timed[-1]:.3f}; backend p50 {f['backend_p50_ms']:.3f} ms; closures fired at scans "
+          f"{f['fired']} (loop factors {f['n_loops']}, rejects {f['lc_rejects']}); launches "
+          f"{ {f'{w}:{q}x{p}:k{k}': c for (w, q, p, k), c in sorted(f['counts'].items())} } "
+          f"B4 {sum(f['seg_counts'].values())}; plain calls {f['plain_calls']}" + gat)
+
+
+def check_mesh_counts(label, f, knn_sites, seg_sites, n_scans):
+    """B1 at every search site and its map preparation, B4 at both map-shard
+    builds, no B3 and no plain version."""
+    for (q, p), name in knn_sites.items():
+        c = f["counts"].get(("knn_counted", q, p, 5), 0)
+        check(c >= (n_scans if name == "odometry" else 1),
+              f"multichip {label}: B1 launched {c} times at the {name} site {q}x{p}")
+        check(f["counts"].get(("knn_map", 0, p, 0), 0) >= c,
+              f"multichip {label}: fewer map preparations than searches at {name}")
+    for key, name in seg_sites.items():
+        check(f["seg_counts"].get(("segred",) + key, 0) >= 1,
+              f"multichip {label}: B4 did not launch at the {name} site {key}")
+    check(not any(w == "knn_pruned" for w, *_ in f["counts"]), f"multichip {label}: B3 launched")
+    check(f["plain_calls"] == 0, f"multichip {label}: a plain version ran {f['plain_calls']} times")
+
+
+def mesh_rows(phase, f, knn_sites, seg_sites, snapshot):
+    """The kernels against their plain versions on the inputs a run
+    recorded at its mesh sites (``snapshot`` "first" or "grown"), and B4 at
+    its map-shard builds."""
+    names = {key: name for key, name in knn_sites.items()}
+    inputs = {("knn_counted",) + key: to_dev(v) for key, v in f[snapshot].items()
+              if (key[0], key[1]) in knn_sites and key[2] == 5}
+    check(len(inputs) == len(knn_sites), f"{phase}: a B1 site was not recorded ({snapshot})")
+    rows = compare_sites(f"{phase}{snapshot}_", inputs, f["counts"], names)
+    if snapshot == "grown":
+        seen = {key: to_dev(v) for key, v in f["seg"].items() if key[2:] in seg_sites}
+        check({key[2:] for key in seen} == set(seg_sites), f"{phase}: a B4 site was not recorded")
+        rows += [compare_segred(phase.rstrip("_"), key, v,
+                                f["seg_counts"].get(("segred",) + key[2:], 0))
+                 for key, v in sorted(seen.items())]
+    return rows
+
+
+def multichip_phase(tmp: str):
+    """The multi-device path at the whole ``fr_iosb_rot`` preset on the
+    first ``MC_SCANS`` scans of the system lap, closures every ``LC_EVERY``
+    scans: (a) ``LiliOmSystem(mesh=…)`` over NCCL at world size 1, against
+    the single-card system with ``incremental_map=False`` (the merge is the
+    identity at n=1: equal bit for bit, or within ``TRAJ_TOL_*``) and the
+    default incremental one (keyframe RMSE of both); (b) two gloo ranks on
+    the card, spawned: each rank's keyframes within ``MC_SHARD_TOL_M`` of
+    (a), equal digests of the replicated state, B1 and B4 launched at every
+    mesh site on every rank, and ``sharded_knn`` with an all-invalid block
+    equal to the plain search. Then the kernels against their plain
+    versions at the mesh sites. Returns (kernel rows, facts)."""
+    cfg = system_config()
+    lc = dataclasses.replace(cfg.loop_closure, time_thres=SYS_LAP_S / 3.0)
+    t0 = time.perf_counter()
+    scans, imu, traj, _, _ = sim_lap(cfg, MC_SCANS)
+    t0w, q0w = pose_at(traj, 0.0, device=DEV)
+    print(f"[multichip] cuts: the first {MC_SCANS} scans of the system lap ({SYS_RINGS}x"
+          f"{SYS_COLS}), closures every {LC_EVERY} scans, time_thres {lc.time_thres:.2f} s as "
+          f"the system phase; one card, so (a) NCCL at world size 1 and (b) {MC_RANKS} gloo "
+          f"ranks on cuda:0; sim {time.perf_counter() - t0:.2f} s")
+    rmse = lambda f: float(torch.sqrt(torch.mean(  # noqa: E731
+        graph_errors(f["graph_t"], f["kf_stamps"], traj, t0w, q0w) ** 2)))
+
+    # (a) NCCL at world size 1, then the single-card references
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_rendezvous",
+                            world_size=1, rank=0)
+    try:
+        a = mesh_lap(make_mesh(1, axis="kf"), scans, imu, cfg, lc)
+    finally:
+        dist.destroy_process_group()
+    batch = mesh_lap(None, scans, imu, dataclasses.replace(
+        cfg, fusion=cfg.fusion._replace(incremental_map=False)), lc, record=False)
+    inc = mesh_lap(None, scans, imu, cfg, lc, record=False)
+    print_lap("(a) NCCL, world size 1", a)
+    print_lap("single card, incremental_map=False", batch)
+    print_lap("single card, incremental maps (default)", inc)
+    knn1, seg1 = mesh_sites(cfg, 1)
+    check_mesh_counts("(a)", a, knn1, seg1, MC_SCANS)
+    check(a["replicated"], "multichip (a): check_replicated found a difference at world size 1")
+    equal = (np.array_equal(a["trajectory"], batch["trajectory"])
+             and torch.equal(a["graph_t"], batch["graph_t"]))
+    gap = max(float(np.abs(a["trajectory"] - batch["trajectory"]).max()),
+              float((a["graph_t"] - batch["graph_t"]).abs().max()))
+    print(f"[multichip] (a) vs the single-card incremental_map=False system: "
+          f"{'bit-equal' if equal else f'NOT bit-equal, gap {gap:.3e} m'} (at world size 1 "
+          f"the merge is the identity and every sum is the rank's own)")
+    check(a["kf_stamps"] == batch["kf_stamps"] and (equal or gap < TRAJ_TOL_M),
+          f"multichip (a): {gap:.3e} m from the single-card batch-map system")
+    ra, rinc = rmse(a), rmse(inc)
+    print(f"[multichip] keyframe RMSE vs the simulator: (a) {ra:.6f} m, single card incremental "
+          f"{rinc:.6f} m, single card batch {rmse(batch):.6f} m")
+    check(ra <= KF_RMSE_TOL_M and rinc <= KF_RMSE_TOL_M,
+          f"multichip: keyframe RMSE (a) {ra:.4f} m, incremental {rinc:.4f} m")
+
+    # (b) two gloo ranks on the card
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    box = torch.tensor([60.0, 60.0, 8.0], device=DEV)
+    knn_p = torch.rand((MC_KNN_P, 3), generator=gen, device=DEV) * box - box / 2
+    knn_q = knn_p[torch.randint(0, MC_KNN_P, (MC_KNN_Q,), generator=gen, device=DEV)] \
+        + 0.2 * torch.randn((MC_KNN_Q, 3), generator=gen, device=DEV)
+    knn_mask = torch.arange(MC_KNN_P, device=DEV) % 3 != 0
+    knn_mask[MC_KNN_P // MC_RANKS:] = False  # every block but the first's: all invalid
+    torch.save({"scans": [tuple(x.cpu() for x in s) for s in scans], "imu": imu.__class__(
+        *(x.cpu() for x in imu)), "cfg": cfg, "lc": lc, "knn_q": knn_q.cpu(),
+        "knn_p": knn_p.cpu(), "knn_mask": knn_mask.cpu()}, os.path.join(tmp, "lap.pt"))
+    del scans
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(MC_RANKS, tmp)
+    print(f"[multichip] (b) {MC_RANKS} ranks spawned and run in {time.perf_counter() - t0:.2f} s")
+    knn2, seg2 = mesh_sites(cfg, MC_RANKS)
+    for r, f in enumerate(ranks):
+        print_lap(f"(b) gloo rank {r} of {MC_RANKS}", f)
+        check_mesh_counts(f"(b) rank {r}", f, knn2, seg2, MC_SCANS)
+        check(f["replicated"], f"multichip (b): rank {r}'s check_replicated found a difference")
+        check(f["kf_stamps"] == ranks[0]["kf_stamps"]
+              and np.array_equal(f["trajectory"], ranks[0]["trajectory"]),
+              f"multichip (b): rank {r}'s run differs from rank 0's")
+    digests = [f["digest"] for f in ranks]
+    print(f"[multichip] (b) replicated-state digests {[d[:16] for d in digests]}; configs "
+          f"{ {k: ranks[0]['configs'][1][k] for k in ('map_slots_pad', 'map_surf_cap', 'map_edge_cap', 'incremental_map')} }")
+    check(len(set(digests)) == 1, "multichip (b): the ranks' digests differ")
+    b = ranks[0]
+    check(b["kf_stamps"] == a["kf_stamps"],
+          f"multichip (b): {len(b['kf_stamps'])} keyframes against (a)'s {len(a['kf_stamps'])}")
+    shard_gap = float(torch.linalg.norm(b["graph_t"] - a["graph_t"], dim=1).max())
+    print(f"[multichip] (b) vs (a): keyframes up to {shard_gap:.4e} m apart (voxels spanning "
+          f"two ranks' keyframes deduplicate per rank); keyframe RMSE (b) {rmse(b):.6f} m")
+    check(shard_gap < MC_SHARD_TOL_M, f"multichip (b): {shard_gap:.4f} m from (a)")
+
+    # sharded_knn with an all-invalid block against the plain search
+    d_ref, i_ref = K.knn(knn_q, knn_p, k=5, p_mask=knn_mask)
+    rows = []
+    for r, f in enumerate(ranks):
+        d, i, counts, seen = f["knn"]
+        check(torch.equal(d.to(DEV), d_ref) and torch.equal(i.to(DEV), i_ref),
+              f"multichip: rank {r}'s sharded_knn differs from the plain search")
+        blk = MC_KNN_P // MC_RANKS
+        rows += compare_sites(f"multichip_sharded_knn_r{r}_",
+                              {("knn_counted",) + key: to_dev(v) for key, v in seen.items()},
+                              counts, {(MC_KNN_Q, blk): "sharded_knn"})
+    print(f"[multichip] sharded_knn {MC_KNN_Q}x{MC_KNN_P} over {MC_RANKS} ranks, block "
+          f"{MC_RANKS - 1} all invalid: equal to the plain search on every rank")
+
+    # the kernels at the mesh sites: world 1's grown maps; rank 0's grown
+    # maps; rank 1's first calls (its map shards empty: zero walk bounds)
+    rows += mesh_rows("multichip_n1_", a, knn1, seg1, "grown")
+    rows += mesh_rows("multichip_n2_r0_", ranks[0], knn2, seg2, "grown")
+    rows += mesh_rows("multichip_n2_r1_", ranks[1], knn2, seg2, "first")
+    zero = [x for x in rows if x["name"].startswith("knn_counted[") and x["valid"][1] == 0]
+    check(any("fusion" in x["name"] for x in zero),
+          "multichip: no fusion site with an all-invalid map shard was held")
+    facts = {name: {"per_scan_host_ms": f["host_ms"], "backend_p50_ms": f["backend_p50_ms"],
+                    "fired": f["fired"], "kf_rmse": rmse(f),
+                    "gather_bytes": f["gather"][0][:1], "gather_event_ms": f["gather"][1],
+                    "gather_host_ms": f["gather"][2]}
+             for name, f in (("nccl_world1", a), ("single_batch", batch),
+                             ("single_incremental", inc), ("gloo_rank0", ranks[0]),
+                             ("gloo_rank1", ranks[1]))}
+    facts["shard_gap_m"], facts["n1_bit_equal"] = shard_gap, equal
+    return rows, facts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -1658,7 +2002,18 @@ def main(argv=None) -> int:
         if prev is not None:
             os.environ["LILI_OM_KNN_PRUNED"] = prev
 
-    # 10. profile
+    # 10. the multi-device path, the pruned switch unset
+    prev = os.environ.pop("LILI_OM_KNN_PRUNED", None)
+    tmp = tempfile.mkdtemp(prefix="lili_multichip_")
+    try:
+        mc_rows, mc_facts = multichip_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if prev is not None:
+            os.environ["LILI_OM_KNN_PRUNED"] = prev
+    kernels += mc_rows
+
+    # 11. profile
     if args.profile:
         timed = sorted(host_ms[N_WARM:])
         profile_frames(frame, scans[N_WARM:N_WARM + 5], timed[len(timed) // 2])
@@ -1671,7 +2026,7 @@ def main(argv=None) -> int:
                                   **facts},
                        "livox": {"per_scan_host_ms": lvx_ms, "lc_rejects": lvx_rejects,
                                  **lvx_facts},
-                       "runtime": rt_facts,
+                       "runtime": rt_facts, "multichip": mc_facts,
                        "kernels": kernels + [unmasked]}, f, indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

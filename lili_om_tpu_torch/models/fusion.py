@@ -18,8 +18,12 @@ problem anchor at the post-solve values.
 
 The ``gn_tol`` early exit is a host loop (one device sync per iteration to
 read the step norm), stopping exactly where the JAX ``while_loop`` stops.
-The sharded-path hooks (``match_fn``, ``incremental_map=False``) belong to
-a later slice and raise ``NotImplementedError``.
+
+``incremental_map=False`` builds both match maps from the whole ring at
+every keyframe instead (:func:`_build_maps`, :func:`default_map_and_match`).
+``fusion_step(match_fn=…)`` takes the map build and the searches from the
+caller: the map-sharded backend (``parallel/map_fusion.py``) passes one
+that searches each rank's share of the ring and merges the candidates.
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ from ..factors.lidar import (EdgeFactorBatch, PlaneFactorBatch, body_points,
                              cauchy_weight, edge_residual, plane_residual)
 from ..factors.prior import MarginalPrior, marginal_prior_residual, speed_bias_prior
 from ..ops.fitting import eig3_symmetric, fit_line, fit_plane
-from ..ops.knn import knn_pair_auto
+from ..ops.knn import knn_auto, knn_pair_auto
 from ..ops.marginalization import schur_marginalize
 from ..ops.preintegration import (ImuNoise, Preint, init_preint, integrate_parallel,
                                   propagate_world_parallel, sqrt_info)
@@ -232,6 +236,23 @@ def edge_fit_and_gate(pts_b, pts_mask, d2, nbrs, cfg: FusionConfig) -> EdgeFacto
                            mask=keep)
 
 
+def _surf_correspondences(pts_b, pw, pts_mask, refl, map_pts, map_mask, map_refl,
+                          cfg: FusionConfig) -> PlaneFactorBatch:
+    """One 5-NN search of the flattened window's surf points against the
+    map (B1 on the card), then :func:`surf_fit_and_gate`. Masked queries
+    are not searched (the JAX search takes them and the gate drops them:
+    the factors are the same)."""
+    d2, idx = knn_auto(pw, map_pts, k=cfg.k, p_mask=map_mask, q_mask=pts_mask)
+    return surf_fit_and_gate(pts_b, pw, pts_mask, refl, d2, map_pts[idx], map_refl[idx], cfg)
+
+
+def _edge_correspondences(pts_b, pw, pts_mask, map_pts, map_mask,
+                          cfg: FusionConfig) -> EdgeFactorBatch:
+    """The edge counterpart of :func:`_surf_correspondences`."""
+    d2, idx = knn_auto(pw, map_pts, k=cfg.k, p_mask=map_mask, q_mask=pts_mask)
+    return edge_fit_and_gate(pts_b, pts_mask, d2, map_pts[idx], cfg)
+
+
 def _extrinsic(cfg: FusionConfig, dtype, dev):
     return (torch.tensor(cfg.t_lb, dtype=dtype, device=dev),
             torch.tensor(cfg.q_lb, dtype=dtype, device=dev))
@@ -331,6 +352,66 @@ def _incremental_maps(state: FusionState, cfg: FusionConfig, rebuild: bool = Fal
         (torch.sum(map_edge_mask.to(torch.int32)) > 0)
     return (map_surf, map_refl, map_surf_mask, map_edge, map_edge_mask,
             enough_map, surf_table, edge_table)
+
+
+def _build_maps(state: FusionState, cfg: FusionConfig, block: slice = slice(None),
+                surf_cap: int | None = None, edge_cap: int | None = None):
+    """Match maps from the ring slots ``block`` (all physical slots by
+    default): each keyframe's sensor-frame clouds through the lidar→body
+    extrinsic and its ring pose, voxel-downsampled to ``surf_cap`` /
+    ``edge_cap`` centroids (the config's map caps by default).
+
+    Returns (map_surf, map_refl, surf_mask, map_edge, edge_mask, enough_map)."""
+    dtype, dev = state.t.dtype, state.t.device
+    t_lb, q_lb = _extrinsic(cfg, dtype, dev)
+    hq, ht, hvalid = state.hist_q[block], state.hist_t[block], state.hist_valid[block]
+
+    def world(clouds, masks):
+        pts = quat_rotate(hq[:, None, :], body_points(clouds[block], t_lb, q_lb)) \
+            + ht[:, None, :]
+        return pts.reshape(-1, 3), (masks[block] & hvalid[:, None]).reshape(-1)
+
+    map_surf, map_refl, surf_mask = voxel_downsample(
+        *world(state.hist_surf, state.hist_surf_mask), cfg.surf_leaf,
+        surf_cap or cfg.map_surf_cap, feats=state.hist_surf_refl[block].reshape(-1, 1))
+    map_edge, edge_mask = voxel_downsample(
+        *world(state.hist_edge, state.hist_edge_mask), cfg.edge_leaf,
+        edge_cap or cfg.map_edge_cap)
+    enough_map = (torch.sum(surf_mask.to(torch.int32)) > 50) & \
+        (torch.sum(edge_mask.to(torch.int32)) > 0)
+    return map_surf, map_refl[:, 0], surf_mask, map_edge, edge_mask, enough_map
+
+
+def window_queries(ts, qs, win_surf_b, win_edge_b, cfg: FusionConfig):
+    """World-frame surf and edge queries of the flattened window:
+    (W·Sc, 3) and (W·Ec, 3)."""
+    pw_surf = (quat_rotate(qs[:, None, :], win_surf_b) + ts[:, None, :]).reshape(-1, 3)
+    return pw_surf, _edge_query_world(ts, qs, win_edge_b, cfg).reshape(-1, 3)
+
+
+def window_batches(sb_flat: PlaneFactorBatch, eb_flat: EdgeFactorBatch, cfg: FusionConfig):
+    """Flattened-window factor batches back to (W, S, ·)."""
+    W, Sc, Ec = cfg.window, cfg.kf_surf_cap, cfg.kf_edge_cap
+    return (PlaneFactorBatch(*[a.reshape((W, Sc) + a.shape[1:]) for a in sb_flat]),
+            EdgeFactorBatch(*[a.reshape((W, Ec) + a.shape[1:]) for a in eb_flat]))
+
+
+def default_map_and_match(state: FusionState, ts, qs, win_surf_b, win_surf_mask,
+                          win_surf_refl, win_edge_b, win_edge_mask, cfg: FusionConfig):
+    """The map build and searches of ``incremental_map=False``: both maps
+    from the whole pre-insert ring (:func:`_build_maps`), then one surf and
+    one edge search of the flattened window. The signature is the
+    ``match_fn`` one of :func:`fusion_step`.
+
+    Returns (surf_batches, edge_batches, enough_map)."""
+    map_surf, map_refl, surf_mask, map_edge, edge_mask, enough_map = _build_maps(state, cfg)
+    pw_surf, pw_edge = window_queries(ts, qs, win_surf_b, win_edge_b, cfg)
+    sb_flat = _surf_correspondences(win_surf_b.reshape(-1, 3), pw_surf,
+                                    win_surf_mask.reshape(-1), win_surf_refl.reshape(-1),
+                                    map_surf, surf_mask, map_refl, cfg)
+    eb_flat = _edge_correspondences(win_edge_b.reshape(-1, 3), pw_edge,
+                                    win_edge_mask.reshape(-1), map_edge, edge_mask, cfg)
+    return window_batches(sb_flat, eb_flat, cfg) + (enough_map,)
 
 
 # ---------------------------------------------------------------------------
@@ -446,8 +527,18 @@ def _ingest(state: FusionState, surf_pts, surf_mask, surf_refl, edge_pts, edge_m
     dtype, dev = state.t.dtype, state.t.device
     t_lb, q_lb = _extrinsic(cfg, dtype, dev)
 
-    (map_surf, map_refl, map_surf_mask, map_edge, map_edge_mask,
-     enough_map, surf_table, edge_table) = _incremental_maps(state, cfg, rebuild)
+    if cfg.incremental_map:
+        (map_surf, map_refl, map_surf_mask, map_edge, map_edge_mask,
+         enough_map, surf_table, edge_table) = _incremental_maps(state, cfg, rebuild)
+    else:
+        # the maps are built at match time (match_fn / default_map_and_match);
+        # placeholders here, and the (1,·) tables carried untouched
+        map_surf = map_edge = torch.zeros((1, 3), dtype=dtype, device=dev)
+        map_refl = torch.zeros((1,), dtype=dtype, device=dev)
+        map_surf_mask = map_edge_mask = torch.zeros((1,), dtype=torch.bool, device=dev)
+        enough_map = torch.zeros((), dtype=torch.bool, device=dev)
+        surf_table = (state.msurf_cells, state.msurf_sums, state.msurf_cnt, state.msurf_valid)
+        edge_table = (state.medge_cells, state.medge_sums, state.medge_cnt, state.medge_valid)
 
     accs = clamp_accel(imu_accs)
     t_new, q_new, v_new, acc0, gyr0 = propagate_world_parallel(
@@ -510,24 +601,18 @@ def _zero_batches(mid: FusionMid, dtype):
 
 def _match_with_maps(mid: FusionMid, cfg: FusionConfig):
     """Flattened-window surf + edge searches against the incremental maps."""
-    W = cfg.window
-    Sc, Ec = cfg.kf_surf_cap, cfg.kf_edge_cap
-    pw_surf = (quat_rotate(mid.qs[:, None, :], mid.win_surf_b)
-               + mid.ts[:, None, :]).reshape(W * Sc, 3)
-    pw_edge = _edge_query_world(mid.ts, mid.qs, mid.win_edge_b, cfg).reshape(W * Ec, 3)
+    pw_surf, pw_edge = window_queries(mid.ts, mid.qs, mid.win_surf_b, mid.win_edge_b, cfg)
     surf_qm = mid.win_surf_mask.reshape(-1)
     edge_qm = mid.win_edge_mask.reshape(-1)
     d2s, idxs, d2e, idxe = knn_pair_auto(
         pw_surf, mid.map_surf, mid.map_surf_mask, pw_edge, mid.map_edge,
         mid.map_edge_mask, k=cfg.k, qm1=surf_qm, qm2=edge_qm)
-    sb_flat = surf_fit_and_gate(mid.win_surf_b.reshape(W * Sc, 3), pw_surf, surf_qm,
-                                mid.win_surf_refl.reshape(W * Sc), d2s,
+    sb_flat = surf_fit_and_gate(mid.win_surf_b.reshape(-1, 3), pw_surf, surf_qm,
+                                mid.win_surf_refl.reshape(-1), d2s,
                                 mid.map_surf[idxs], mid.map_refl[idxs], cfg)
-    eb_flat = edge_fit_and_gate(mid.win_edge_b.reshape(W * Ec, 3), edge_qm, d2e,
+    eb_flat = edge_fit_and_gate(mid.win_edge_b.reshape(-1, 3), edge_qm, d2e,
                                 mid.map_edge[idxe], cfg)
-    surf_batches = PlaneFactorBatch(*[a.reshape((W, Sc) + a.shape[1:]) for a in sb_flat])
-    edge_batches = EdgeFactorBatch(*[a.reshape((W, Ec) + a.shape[1:]) for a in eb_flat])
-    return surf_batches, edge_batches, mid.enough_map
+    return window_batches(sb_flat, eb_flat, cfg) + (mid.enough_map,)
 
 
 def _finish(state: FusionState, mid: FusionMid, surf_batches, edge_batches,
@@ -637,12 +722,13 @@ def fusion_step(state: FusionState, surf_pts, surf_mask, surf_refl, edge_pts, ed
                 warmup: bool = False, match_fn=None, rebuild: bool = False, device=None):
     """Ingest one keyframe (see the module docstring). ``warmup``: the
     window is not full yet — no correspondence search and no solve.
-    ``rebuild``: rebuild the mature map tables from the whole ring (the
-    first keyframe after a loop closure moved the ring poses). Runs on
-    ``device`` (None = the CUDA device). Returns (new_state, FusionOut)."""
-    if match_fn is not None or not cfg.incremental_map:
-        raise NotImplementedError(
-            "match_fn and incremental_map=False (the sharded path) are not ported yet")
+    ``match_fn``: the map build and correspondence phase, called as
+    :func:`default_map_and_match` is on the pre-insert state; by default
+    the incremental maps, or :func:`default_map_and_match` under
+    ``incremental_map=False``. ``rebuild``: rebuild the mature map tables
+    from the whole ring (the first keyframe after a loop closure moved the
+    ring poses). Runs on ``device`` (None = the CUDA device). Returns
+    (new_state, FusionOut)."""
     dev = resolve_device(device)
     args = [a.to(dev) for a in (surf_pts, surf_mask, surf_refl, edge_pts, edge_mask,
                                 imu_dts, imu_accs, imu_gyrs, imu_valid)]
@@ -651,7 +737,14 @@ def fusion_step(state: FusionState, surf_pts, surf_mask, surf_refl, edge_pts, ed
     if warmup:
         surf_batches, edge_batches = _zero_batches(mid, dtype)
     else:
-        surf_batches, edge_batches, enough_map = _match_with_maps(mid, cfg)
+        # the map comes from the pre-insert ring (the reference's local map
+        # leaves out the incoming keyframe)
+        if match_fn is None and cfg.incremental_map:
+            surf_batches, edge_batches, enough_map = _match_with_maps(mid, cfg)
+        else:
+            surf_batches, edge_batches, enough_map = (match_fn or default_map_and_match)(
+                state, mid.ts, mid.qs, mid.win_surf_b, mid.win_surf_mask, mid.win_surf_refl,
+                mid.win_edge_b, mid.win_edge_mask, cfg)
         # no lidar factors while the map is too sparse
         surf_batches = surf_batches._replace(
             mask=surf_batches.mask & enough_map,

@@ -22,7 +22,7 @@ from ..factors.lidar import PlaneFactorBatch, huber_weight, plane_residual
 from ..ops.fitting import eig3_symmetric, fit_plane
 from ..ops.knn import world_knn_auto
 from ..ops.voxel import merge_voxel_entries, voxel_downsample
-from ..solver.gn import gn_update
+from ..solver.gn import block_hessian, solve_normal
 from ..utils.math import (exp_so3, pose_relative, quat_conj, quat_mul, quat_normalize,
                           quat_rotate, unify_quaternion)
 
@@ -160,14 +160,20 @@ def clamp_step(delta, cfg: OdometryConfig):
     return delta * scale
 
 
-def _fit_and_gn(t, q, scan_q, scan_q_mask, pw, nbrs, d2, cfg: OdometryConfig):
-    """Plane fits + gates + up to ``gn_iters`` GN steps."""
+def _fit_and_gn(t, q, scan_q, scan_q_mask, pw, nbrs, d2, cfg: OdometryConfig,
+                reduce=None):
+    """Plane fits + gates + up to ``gn_iters`` GN steps. ``reduce``: a sum
+    over the ranks of a query-sharded round (``parallel/sharded.py``),
+    applied to each step's normal equations and to the correspondence
+    count; the solve then runs on the same sums on every rank."""
     batch = plane_correspondences(scan_q, scan_q_mask, pw, nbrs, d2, cfg)
 
     def gn_step(t, q):
         r, J = plane_residual(t, q, batch)
-        w = huber_weight(r * r, cfg.huber)
-        delta = clamp_step(gn_update(J, r, damping=1e-8, w=w), cfg)
+        H, b = block_hessian(J, r, huber_weight(r * r, cfg.huber))
+        if reduce is not None:
+            H, b = reduce(H), reduce(b)
+        delta = clamp_step(solve_normal(H, b, 1e-8), cfg)
         return t + delta[:3], quat_normalize(quat_mul(q, exp_so3(delta[3:6]))), \
             torch.linalg.norm(delta)
 
@@ -180,7 +186,8 @@ def _fit_and_gn(t, q, scan_q, scan_q_mask, pw, nbrs, d2, cfg: OdometryConfig):
     else:
         for _ in range(cfg.gn_iters):
             t, q, _ = gn_step(t, q)
-    return t, q, torch.sum(batch.mask.to(torch.int32)).to(torch.int32)
+    n_corr = torch.sum(batch.mask.to(torch.int32)).to(torch.int32)
+    return t, q, n_corr if reduce is None else reduce(n_corr)
 
 
 def _frame_from_scan(scan_q, scan_q_mask, surf_pts, surf_mask, t, q, cfg: OdometryConfig):
@@ -191,33 +198,25 @@ def _frame_from_scan(scan_q, scan_q_mask, surf_pts, surf_mask, t, q, cfg: Odomet
     return voxel_downsample(world, surf_mask, cfg.ds_leaf, cfg.frame_cap)
 
 
-def odometry_step(state: OdometryState, surf_pts: torch.Tensor, surf_mask: torch.Tensor,
-                  cfg: OdometryConfig = OdometryConfig(), n_rounds: int | None = None,
-                  device=None):
-    """Process one frame's surf-feature cloud (sensor frame at scan start).
-    ``n_rounds`` defaults to ``cfg.scan_match_cnt``. Runs on ``device``
-    (None = the CUDA device). Returns (new_state, OdometryOut)."""
-    dev = resolve_device(device)
-    surf_pts, surf_mask = surf_pts.to(dev), surf_mask.to(dev)
-    F = cfg.n_recent_frames
-    dtype = surf_pts.dtype
-
-    # pose prior: propagate the last relative motion
+def _odo_prepare(state: OdometryState, surf_pts, surf_mask, cfg: OdometryConfig):
+    """Before the matching rounds: the constant-velocity pose prior, the
+    match map from the table and the scan downsampled into queries.
+    Returns (t_guess, q_guess, scan_q, scan_q_mask, map_pts, map_mask)."""
     rel_t, rel_q = pose_relative(state.t_prev, state.q_prev, state.t, state.q)
     t_guess = state.t + quat_rotate(state.q, rel_t)
     q_guess = quat_normalize(quat_mul(state.q, rel_q))
-
     map_pts, map_mask = _map_from_table(state, cfg)
     scan_q, scan_q_mask = voxel_downsample(surf_pts, surf_mask, cfg.ds_leaf, cfg.query_cap)
+    return t_guess, q_guess, scan_q, scan_q_mask, map_pts, map_mask
 
-    if n_rounds is None:
-        n_rounds = cfg.scan_match_cnt
-    t, q = t_guess, q_guess
-    n_corr = torch.zeros((), dtype=torch.int32, device=dev)
-    for _ in range(n_rounds):
-        pw, d2, idx = world_knn_auto(t, q, scan_q, map_pts, k=cfg.k,
-                                     p_mask=map_mask, q_mask=scan_q_mask)
-        t, q, n_corr = _fit_and_gn(t, q, scan_q, scan_q_mask, pw, map_pts[idx], d2, cfg)
+
+def _odo_finalize(state: OdometryState, scan_q, scan_q_mask, surf_pts, surf_mask,
+                  t_guess, q_guess, t, q, n_corr, cfg: OdometryConfig):
+    """After the matching rounds: the divergence gate, the keyframe
+    decision and the ring-buffer and table update. Returns (new_state,
+    OdometryOut)."""
+    F = cfg.n_recent_frames
+    dtype = scan_q.dtype
 
     # divergence gate: fall back to the prior when matching collapsed
     diverged = torch.linalg.norm(t - t_guess) > cfg.max_frame_jump
@@ -254,3 +253,26 @@ def odometry_step(state: OdometryState, surf_pts: torch.Tensor, surf_mask: torch
     out = OdometryOut(t=t, q=q, rel_t=out_rel_t, rel_q=out_rel_q,
                       is_keyframe=is_kf, n_corr=n_corr)
     return new_state, out
+
+
+def odometry_step(state: OdometryState, surf_pts: torch.Tensor, surf_mask: torch.Tensor,
+                  cfg: OdometryConfig = OdometryConfig(), n_rounds: int | None = None,
+                  device=None):
+    """Process one frame's surf-feature cloud (sensor frame at scan start):
+    :func:`_odo_prepare`, ``n_rounds`` matching rounds (default
+    ``cfg.scan_match_cnt``), :func:`_odo_finalize`. Runs on ``device``
+    (None = the CUDA device). Returns (new_state, OdometryOut)."""
+    dev = resolve_device(device)
+    surf_pts, surf_mask = surf_pts.to(dev), surf_mask.to(dev)
+    t_guess, q_guess, scan_q, scan_q_mask, map_pts, map_mask = _odo_prepare(
+        state, surf_pts, surf_mask, cfg)
+    if n_rounds is None:
+        n_rounds = cfg.scan_match_cnt
+    t, q = t_guess, q_guess
+    n_corr = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(n_rounds):
+        pw, d2, idx = world_knn_auto(t, q, scan_q, map_pts, k=cfg.k,
+                                     p_mask=map_mask, q_mask=scan_q_mask)
+        t, q, n_corr = _fit_and_gn(t, q, scan_q, scan_q_mask, pw, map_pts[idx], d2, cfg)
+    return _odo_finalize(state, scan_q, scan_q_mask, surf_pts, surf_mask, t_guess, q_guess,
+                         t, q, n_corr, cfg)

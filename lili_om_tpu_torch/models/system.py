@@ -32,11 +32,23 @@ frontend, the backend and the closures on three threads: the carried
 states are replaced, never written in place, and the IMU buffer is guarded
 by its own lock.
 
-Not ported yet: the map-sharded backend (``mesh``).
+``LiliOmSystem(mesh=…)`` runs the multi-device path: one process per rank
+(SPMD over ``torch.distributed``), each with the whole system. The
+odometry's matching rounds split the queries over the ranks
+(``parallel/sharded.py:make_sharded_odometry``) and fusion splits the local
+map (``parallel/map_fusion.py``); the estimator states, the keyframe ring
+and the graph stay replicated. Every branch the host takes reads values
+that are equal on every rank by construction (all-reduced sums, or the
+same arithmetic on the same inputs), so no collective is left unmatched.
+Loop-closure detection, ICP and the graph solve run on rank 0 alone, and
+rank 0's outcome is broadcast (:meth:`LiliOmSystem.try_loop_closure`);
+:meth:`LiliOmSystem.check_replicated` compares a digest of the replicated
+state across the ranks.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import os
 import threading
 import warnings
@@ -63,11 +75,43 @@ from .odometry import OdometryConfig, init_state as init_odo_state, odometry_ste
 from .pose_graph import (add_loop, add_node, ensure_capacity, init_graph,
                          optimize_graph_chain, set_loop, solve_graph_incremental)
 
-__all__ = ["LiliOmSystem", "LivoxKeyframePayload", "LoopClosureConfig"]
+__all__ = ["LiliOmSystem", "LivoxKeyframePayload", "LoopClosureConfig", "mesh_configs"]
 
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def mesh_configs(odo_cfg: OdometryConfig, fusion_cfg: FusionConfig, n: int):
+    """The configs of an ``n``-rank mesh, as the JAX system rounds them:
+    fusion builds its maps from the ring (``incremental_map=False``), the
+    ring gets ``(−M) mod n`` permanently invalid pad slots so its slots
+    divide the mesh (the ring cursor stays modulo M), the map caps are
+    rounded up to a multiple of n, and so is ``query_cap`` when n does not
+    divide it. Returns (odo_cfg, fusion_cfg)."""
+    rnd = lambda x: -(-x // n) * n  # noqa: E731
+    fusion_cfg = fusion_cfg._replace(
+        incremental_map=False, map_slots_pad=(-fusion_cfg.local_map_width) % n,
+        map_surf_cap=rnd(fusion_cfg.map_surf_cap), map_edge_cap=rnd(fusion_cfg.map_edge_cap))
+    if odo_cfg.query_cap % n:
+        odo_cfg = odo_cfg._replace(query_cap=rnd(odo_cfg.query_cap))
+    return odo_cfg, fusion_cfg
+
+
+def _host_tree(tree):
+    """A NamedTuple of tensors (nested ones too) with numpy leaves."""
+    return type(tree)(*[_host_tree(v) if hasattr(v, "_fields") else _np(v) for v in tree])
+
+
+def _device_tree(tree, device):
+    """:func:`_host_tree`'s inverse, on ``device``."""
+    return type(tree)(*[_device_tree(v, device) if hasattr(v, "_fields")
+                        else torch.as_tensor(v).to(device) for v in tree])
+
+
+def _leaves(tree):
+    for v in tree:
+        yield from (_leaves(v) if hasattr(v, "_fields") else (v,))
 
 
 def _reskew(pts, rel_time, trans):
@@ -115,9 +159,27 @@ class LiliOmSystem:
                  lc_cfg: LoopClosureConfig | None = None, noise: ImuNoise = ImuNoise(),
                  graph_capacity: int = 512, q0=None, dtype=torch.float32, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError("the map-sharded backend (mesh) is not ported yet")
-        self.device = resolve_device(device)
+        """``mesh``: a 1-D ``DeviceMesh`` (``parallel/sharded.py:make_mesh``)
+        switches to the multi-device path (see the module docstring); every
+        rank constructs its system with the same arguments, on the mesh's
+        device for the rank (``device`` must then be None or of the mesh's
+        type). The configs are rounded to the mesh as the JAX package rounds
+        them (:func:`mesh_configs`)."""
+        self.mesh = mesh
+        self._sharded_odo = self._dist_warm = self._dist_main = self.slot_blocks = None
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from ..parallel.map_fusion import make_map_sharded_system_step
+            from ..parallel.sharded import make_sharded_odometry, mesh_device
+
+            self.device = mesh_device(mesh)
+            if device is not None and torch.device(device).type != self.device.type:
+                raise ValueError(f"device {device} is not the mesh's ({mesh.device_type})")
+            odo_cfg, fusion_cfg = mesh_configs(odo_cfg, fusion_cfg, mesh.size())
+            self._dist_warm, self._dist_main, self.slot_blocks = \
+                make_map_sharded_system_step(mesh, fusion_cfg, noise)
+            self._sharded_odo = make_sharded_odometry(mesh, odo_cfg)
         self.odo_cfg, self.fusion_cfg, self.feat_cfg = odo_cfg, fusion_cfg, feat_cfg
         self.livox_cfg = livox_cfg
         self.lc_cfg = LoopClosureConfig() if lc_cfg is None else lc_cfg
@@ -306,8 +368,13 @@ class LiliOmSystem:
             # 8 bootstrap rounds for the first two frames
             rounds = (self.odo_cfg.max_rounds if self.n_frames < 2
                       else self.odo_cfg.scan_match_cnt)
-            self.odo_state, out = odometry_step(self.odo_state, surf, surf_mask, self.odo_cfg,
-                                                n_rounds=rounds, device=self.device)
+            if self._sharded_odo is not None:
+                self.odo_state, out = self._sharded_odo(self.odo_state, surf, surf_mask,
+                                                        n_rounds=rounds)
+            else:
+                self.odo_state, out = odometry_step(self.odo_state, surf, surf_mask,
+                                                    self.odo_cfg, n_rounds=rounds,
+                                                    device=self.device)
         self.n_frames += 1
         summary = _np(torch.cat([out.t, out.rel_t, torch.stack([
             out.is_keyframe.to(self.dtype), out.n_corr.to(self.dtype)])]))
@@ -448,9 +515,16 @@ class LiliOmSystem:
         self._kf_count_host += 1
         rebuild, self._maps_dirty = self._maps_dirty, False
         with self.metrics.stage("fusion"):
-            self.fusion_state, fout = fusion_step(
-                self.fusion_state, sp, sm, s_refl, ep, em, dts, accs, gyrs, vmask, cfg,
-                self.noise, warmup=warm, rebuild=rebuild, device=self.device)
+            if self._dist_main is not None:
+                # the mesh's maps come from the ring at every keyframe:
+                # there are no tables to rebuild
+                fn = self._dist_warm if warm else self._dist_main
+                self.fusion_state, fout = fn(self.fusion_state, sp, sm, s_refl, ep, em, dts,
+                                             accs, gyrs, vmask)
+            else:
+                self.fusion_state, fout = fusion_step(
+                    self.fusion_state, sp, sm, s_refl, ep, em, dts, accs, gyrs, vmask, cfg,
+                    self.noise, warmup=warm, rebuild=rebuild, device=self.device)
         self.last_fusion_out = fout
         self.graph = ensure_capacity(self.graph, len(self.kf_stamps) + 1)
         self.graph = add_node(self.graph, fout.t_latest, fout.q_latest)
@@ -602,6 +676,63 @@ class LiliOmSystem:
         return tq[:, :3].copy(), tq[:, 3:].copy()
 
     def try_loop_closure(self, lock=None) -> bool:
+        """One detection + closure attempt (:meth:`_attempt_closure`).
+
+        Under a mesh every rank calls it at the same point of the stream:
+        rank 0 alone attempts the closure, then broadcasts the outcome
+        (fired or not, the graph, the loop pairs, the debounce stamp and
+        the reject counters); the other ranks take rank 0's graph and, when
+        it fired, apply the same pose correction to their replicated
+        states. Returns whether a closure fired, on every rank."""
+        if self.mesh is None:
+            return self._attempt_closure(lock)
+        from ..parallel.sharded import broadcast_object
+
+        out = None
+        if self.mesh.get_local_rank() == 0:
+            fired = self._attempt_closure(lock)
+            out = (fired, _host_tree(self.graph) if fired else None, list(self._loop_pairs),
+                   self.last_loop_stamp, dict(self.lc_rejects))
+        fired, graph, pairs, stamp, rejects = broadcast_object(self.mesh, out)
+        if self.mesh.get_local_rank() != 0:
+            self._loop_pairs, self.last_loop_stamp, self.lc_rejects = pairs, stamp, rejects
+            if fired:
+                self.graph = _device_tree(graph, self.device)
+                self._correct_poses()
+        return fired
+
+    def replicated_digest(self) -> str:
+        """SHA-256 of the state every rank of a mesh holds alike: the
+        odometry and fusion states (the keyframe ring included), the graph,
+        the per-frame trajectory and the keyframe stamps."""
+        h = hashlib.sha256()
+        for tree in (self.odo_state, self.fusion_state, self.graph):
+            for a in _leaves(_host_tree(tree)):
+                h.update(np.ascontiguousarray(a).tobytes())
+        h.update(np.asarray(self.trajectory, np.float64).tobytes())
+        h.update(np.asarray(self.kf_stamps, np.float64).tobytes())
+        return h.hexdigest()
+
+    def check_replicated(self) -> bool:
+        """Under a mesh: whether every rank's :meth:`replicated_digest` is
+        equal. If not, rank 0's odometry and fusion states, graph, trajectory
+        and keyframe stamps are broadcast and taken by every rank, and False
+        is returned (the ranks had diverged). Every rank must call it."""
+        from ..parallel.sharded import broadcast_object, gather_objects
+
+        if len(set(gather_objects(self.mesh, self.replicated_digest()))) == 1:
+            return True
+        snap = None
+        if self.mesh.get_local_rank() == 0:
+            snap = (_host_tree(self.odo_state), _host_tree(self.fusion_state),
+                    _host_tree(self.graph), list(self.trajectory), list(self.kf_stamps))
+        odo, fus, graph, self.trajectory, self.kf_stamps = broadcast_object(self.mesh, snap)
+        self.odo_state = _device_tree(odo, self.device)
+        self.fusion_state = _device_tree(fus, self.device)
+        self.graph = _device_tree(graph, self.device)
+        return False
+
+    def _attempt_closure(self, lock=None) -> bool:
         """One detection + closure attempt.
 
         * The closure anchors at the mature keyframe ``n − window``, the

@@ -94,7 +94,13 @@ class PipelineRunner:
         drop under backpressure, the reference's bounded topic queues);
         False = lossless offline replay, ``feed_scan*`` blocks the producer
         instead. ``loop_period_s``: seconds between closure attempts of
-        the loop thread (wall clock)."""
+        the loop thread (wall clock). A system on a mesh is refused: the
+        loop thread's wall-clock attempts would fall at different scans on
+        different ranks and leave their collectives unmatched."""
+        if getattr(system, "mesh", None) is not None:
+            raise NotImplementedError(
+                "PipelineRunner does not drive a LiliOmSystem(mesh=...) yet: call "
+                "process_scan and try_loop_closure at the same scans on every rank")
         self.system = system
         self.drop_when_full = drop_when_full
         self._scan_store: dict[int, tuple] = {}

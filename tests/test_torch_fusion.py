@@ -165,13 +165,54 @@ def test_fusion_step_rebuild_matches_jax(inputs):
     assert int(tstate["msurf_valid"].sum()) > 0  # the rebuilt table holds the mature ring
 
 
-@pytest.mark.parametrize("kw", [{"match_fn": lambda *a: None},
-                                {"cfg": {"incremental_map": False}}])
-def test_unported_paths_raise(inputs, kw):
-    """The sharded path's hooks (a later slice) raise."""
+@pytest.fixture(scope="module")
+def batch_map_runs(inputs):
+    """The port over the scans twice: under the incremental config with
+    ``match_fn=default_map_and_match`` (counting its calls), and with
+    ``incremental_map=False``. Returns ({kind: (final state, outs)}, calls)."""
     _, (_, _, tf, tn) = small_configs()
-    kw = dict(kw)
-    tf = tf._replace(**kw.pop("cfg", {}))
-    ts = TFu.init_fusion_state(tf, tn, dtype=torch.float64, device=CPU)
-    with pytest.raises(NotImplementedError):
-        TFu.fusion_step(ts, *_args(inputs[0], torch, torch.float64), tf, tn, device=CPU, **kw)
+    calls = []
+
+    def match_fn(*a, **kw):
+        calls.append(1)
+        return TFu.default_map_and_match(*a, **kw)
+
+    runs = {}
+    for kind, cfg, kw in (("match_fn", tf, {"match_fn": match_fn}),
+                          ("incremental_map", tf._replace(incremental_map=False), {})):
+        ts = TFu.init_fusion_state(cfg, tn, dtype=torch.float64, device=CPU)
+        outs = []
+        for d in inputs:
+            warm = int(ts.kf_count) + 1 < cfg.window
+            ts, to = TFu.fusion_step(ts, *_args(d, torch, torch.float64), cfg, tn, warmup=warm,
+                                     device=CPU, **kw)
+            outs.append(tree_dict(to))
+        runs[kind] = (state_dict(ts), outs)
+    return runs, len(calls)
+
+
+WINDOW_FIELDS = ("t", "q", "v", "ba", "bg", "hist_t", "hist_q", "hist_valid", "kf_count")
+
+
+@pytest.mark.parametrize("kw", [{"match_fn": TFu.default_map_and_match},
+                                {"cfg": {"incremental_map": False}}])
+def test_unported_paths_raise(batch_map_runs, kw):
+    """The sharded path's hooks, which raised until the multi-device slice,
+    run: a ``match_fn`` replaces the incremental maps' search on every main
+    step, and ``incremental_map=False`` builds the maps from the ring
+    (``default_map_and_match``) and leaves the mature tables untouched. With
+    the batch build as the ``match_fn`` the two runs take the same poses
+    exactly. Their parity with the JAX package is
+    tests/test_torch_map_fusion.py's."""
+    runs, n_calls = batch_map_runs
+    (ms, mouts), (bs, bouts) = runs["match_fn"], runs["incremental_map"]
+    if "match_fn" in kw:
+        assert n_calls == N_SCANS - 2  # every main step, no warmup step
+        assert int(ms["msurf_valid"].sum()) > 0  # the tables still update
+    else:
+        assert bs["msurf_valid"].shape == (1,) and not bs["msurf_valid"].any()
+    assert int(bouts[-1]["n_surf_corr"]) > 50 and int(bouts[-1]["n_edge_corr"]) > 10
+    for a, b in zip(mouts, bouts):
+        assert_close_dicts(a, b, rtol=0.0, atol=0.0, what="outputs")
+    assert_close_dicts({k: ms[k] for k in WINDOW_FIELDS}, {k: bs[k] for k in WINDOW_FIELDS},
+                       rtol=0.0, atol=0.0, what="window")

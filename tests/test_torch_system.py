@@ -215,9 +215,30 @@ def test_imu_buffer_bulk_push_and_trim():
     assert ts._imu_slice(0.1, 0.2) is None and ts._imu_slice(1.0, 1.1) is not None
 
 
+class _OneRankMesh:
+    """What ``LiliOmSystem.__init__`` reads of a 1-rank CPU mesh (building
+    the system runs no collective)."""
+
+    device_type, mesh_dim_names = "cpu", ("kf",)
+
+    def size(self):
+        return 1
+
+    def get_local_rank(self):
+        return 0
+
+
 def test_unported_options_raise():
+    """``mesh`` is ported (tests/test_torch_map_fusion.py). Still refused
+    around it: ``PipelineRunner`` over a mesh system (its wall-clock loop
+    thread would attempt closures at different scans on different ranks)
+    and a ``device`` other than the mesh's."""
+    from lili_om_tpu_torch.runtime.pipeline import PipelineRunner
+
     with pytest.raises(NotImplementedError):
-        TSystem(mesh=object(), device=CPU)
+        PipelineRunner(TSystem(mesh=_OneRankMesh(), device=CPU))
+    with pytest.raises(ValueError):
+        TSystem(mesh=_OneRankMesh(), device="cuda")
 
 
 # --- the Livox variant ------------------------------------------------------
