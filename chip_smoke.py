@@ -40,7 +40,7 @@ Phases, each printing its own line; any failed check exits non-zero:
    the lap, each closure attempt's fitness untrimmed and trimmed, and how
    far its submaps lie from the simulated world's surfaces (with ``--out``,
    the submaps go to ``icp_attempts.npz`` for ``python3 -m
-   tools.replay_icp``); then B3 against the plain version and B1 on the
+   tools.replay_icp``, and phase 12's to ``icp_attempts_<preset>.npz``); then B3 against the plain version and B1 on the
    inputs each of its call sites gave it (ICP's prepared map and source
    order included), timed as the site calls it beside the per-call route,
    its visits per block against the plain schedule's, its bound counting
@@ -96,7 +96,29 @@ Phases, each printing its own line; any failed check exits non-zero:
 11. with ``--profile``, a ``torch.profiler`` window over a few main-path
    frames (device busy share, kernels by device time), and in phase 9 a
    profiler window over one more direct and one more pipeline run (device
-   busy share, the CUDA runtime calls of every thread).
+   busy share, the CUDA runtime calls of every thread);
+12. evaluate (run before 11), the pruned switch unset: (a) the JAX golden-loop
+   harness's table through ``apps/evaluate_presets.run_preset`` over its
+   default presets (``synthetic`` 16×900, ``fr_iosb_rot`` 64×900, ``fr_iosb``
+   Livox 6 × 4000), 200 frames each, float32 (with (b)'s two runs, one
+   spawned process per run, all at once), every keyframe ATE within the
+   harness's bound and beside the JAX package's TPU record, B1 and B4
+   launched in each run and no plain version; (b) ``aggressive_trajectory``
+   (tests/test_golden_motion.py) through the whole ``fr_iosb_rot`` preset at
+   64×1800 and ``fr_iosb`` at 6 × 4000, 120 frames from rest, so that the
+   run flies the start-up ramp and then the yaw bursts (above 1.5 rad/s
+   from 7.2 s on, required of the simulated gyro): the backend's keyframe
+   ATE under 0.6 m, surf matches on ≥ 90 % of scans after two; (c) ``export_run`` of (a)'s ``fr_iosb_rot`` system:
+   the TUM file reloads to the graph within its ``%.6f``, the PLY's and the
+   PCD's point counts equal the map's, the PNG drawn where matplotlib is
+   installed (else its ``ImportError`` names the PNG); (d) a ``LiveViewer``
+   on a 40-scan run publishing every 1 s of scan time, its files written
+   and ``index.html`` fetched over localhost; (e) ``device_trace`` around
+   three main-path ``Frame`` steps names B1's and B4's kernels; (f)
+   ``hashgrid_knn`` on the card at the odometry's search shape finds every
+   neighbour B1 finds inside the NN gate for each query whose 27 cells
+   hash to distinct buckets, and misses one elsewhere only where its result
+   holds a point twice; both timed.
 
 Then one line with the ``kernels`` JSON, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. It imports nothing of the
@@ -107,6 +129,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -115,6 +138,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -122,6 +146,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from lili_om_tpu_torch import cuda_build
+from lili_om_tpu_torch.apps import evaluate_presets, run_loop_closure
 from lili_om_tpu_torch.device import plain_kernels
 from lili_om_tpu_torch.frame import Frame, bench_configs, sim_scans
 from lili_om_tpu_torch.io.checkpoint import load_system, save_system
@@ -133,16 +158,22 @@ from lili_om_tpu_torch.models.system import LiliOmSystem
 from lili_om_tpu_torch.ops import knn as K
 from lili_om_tpu_torch.ops import segred as SG
 from lili_om_tpu_torch.ops import voxel as voxel_mod
+from lili_om_tpu_torch.ops.hashgrid import build_grid, hashgrid_knn, neighbour_buckets
 from lili_om_tpu_torch.parallel import map_fusion as map_fusion_mod
 from lili_om_tpu_torch.parallel.sharded import make_mesh, sharded_knn
 from lili_om_tpu_torch.runtime.ingest import ShardedIngest
 from lili_om_tpu_torch.runtime.pipeline import PipelineRunner
 from lili_om_tpu_torch.sim.lidar import livox_pattern, simulate_scan, spinning_pattern
-from lili_om_tpu_torch.sim.trajectory import circle_trajectory, pose_at, simulate_imu
+from lili_om_tpu_torch.sim.trajectory import (aggressive_trajectory, circle_trajectory, pose_at,
+                                              simulate_imu)
 from lili_om_tpu_torch.sim.world import World, make_room_world
 from lili_om_tpu_torch.utils.config import load_config
+from lili_om_tpu_torch.utils.evaluation import ate_rmse, host, load_tum
+from lili_om_tpu_torch.utils.live_viz import LiveViewer
+from lili_om_tpu_torch.utils.metrics import device_trace
+from lili_om_tpu_torch.utils.viz import export_run
 from lili_om_tpu_torch.utils.math import (pose_relative, quat_conj, quat_conj_np, quat_mul,
-                                          quat_rotate, quat_rotate_np)
+                                          quat_normalize, quat_rotate, quat_rotate_np)
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -220,6 +251,28 @@ RT_SCANS, RT_SAVE_AT, RT_INGEST_HOSTS, RT_LOOP_PERIOD_S = 70, 35, 2, 1.0
 MC_SCANS, MC_RANKS, MC_SHARD_TOL_M, MC_RECORD_FROM = RT_SCANS, 2, 0.05, SYS_RECORD_FROM
 MC_KNN_Q, MC_KNN_P = 4096, 65536
 MC_JOIN_S = 900
+# evaluate phase: the JAX golden-loop harness (examples/evaluate_presets.py)
+# over its default presets, EV_FRAMES frames each, float32, each preset's
+# keyframe ATE held to its bound there (1.0 m); beside it, for reading
+# only, the JAX package's record on its TPU in float32 (docs/STATUS.md:
+# 188-190; no record for "synthetic")
+EV_FRAMES = 200
+EV_JAX_KF_ATE = {"fr_iosb_rot": 0.111, "fr_iosb": 0.211}
+# aggressive motion (tests/test_golden_motion.py at full preset widths):
+# AG_FRAMES sweeps from rest, the backend's keyframe ATE against the
+# world-axes truth under AG_BOUND_M (:154-155), surf matches on ACQUIRED_MIN
+# of the scans after the two bootstrap scans (:168-169). The JAX test's 60
+# sweeps end on the start-up ramp (peak 0.97 rad/s); the yaw bursts start at
+# 7.2 s (the JAX test of the bursts samples 5-12 s, :27-32), so the run
+# takes 12 s of sweeps and requires a gyro peak above AG_MIN_GYRO
+AG_FRAMES, AG_BOUND_M, AG_MIN_GYRO = 120, 0.6, 1.5
+AG_PRESETS = ("fr_iosb_rot", "fr_iosb")
+# the live viewer's run (apps/run_loop_closure.py's system, 16×720) and
+# its map-publish period in seconds of scan time
+LV_FRAMES, LV_PUBLISH_S = 40, 1.0
+# the hash grid against B1 at the odometry's search: buckets and slots per
+# bucket (enough that no map point overflows at the odometry's 0.4 m leaf)
+HG_BUCKETS, HG_CAP = 65536, 32
 DEV = "cuda"
 
 
@@ -715,6 +768,18 @@ def system_phase():
             (seg_counts, seg.seen))
 
 
+def save_icp_attempts(path, calls, lc_cfg):
+    """Every closure attempt's submaps and ICP result (``IcpSpy.calls``), for
+    a replay through the JAX reference (``python3 -m tools.replay_icp``)."""
+    stack = lambda j: np.stack([c[1][j].cpu().numpy() for c in calls])
+    np.savez_compressed(
+        path, scan=np.array([c[0] for c in calls]), src=stack(0), src_mask=stack(1),
+        tgt=stack(2), tgt_mask=stack(3), n_iters=lc_cfg.icp_iters, trim=lc_cfg.icp_trim,
+        t=np.stack([c[2].t.cpu().numpy() for c in calls]),
+        q=np.stack([c[2].q.cpu().numpy() for c in calls]),
+        fitness=np.array([float(c[2].fitness) for c in calls]))
+
+
 def surface_distance(world: World, pts):
     """Distance of each point (simulator frame) to the nearest surface of
     ``world``: its bounded planes and its capped cylinders."""
@@ -1058,16 +1123,20 @@ def check_gap(what, gap):
           f"runtime: {what} differ by {traj_m:.3e} / {win_m:.3e} m, {win_rad:.3e} rad")
 
 
-def check_runtime_counts(what, counts, seg_counts, plain):
-    print(f"[runtime] {what}: launches B1 {K.launch_count('knn_counted')} (map preparations "
-          f"{K.launch_count('knn_map')}), B2 {K.launch_count('knn_dense')}, B3 "
-          f"{K.launch_count('knn_pruned')}, B4 {sum(seg_counts.values())}; plain calls {plain}; "
+def check_counts(phase, what, counts, seg_counts, plain):
+    """One run's launch counts (``counted``'s, possibly from another
+    process): B1 (with its map preparations) and B4 launched, B3 not (the
+    switch unset), no plain version."""
+    by = lambda w: sum(n for (name, *_), n in counts.items() if name == w)
+    print(f"[{phase}] {what}: launches B1 {by('knn_counted')} (map preparations "
+          f"{by('knn_map')}), B2 {by('knn_dense')}, B3 {by('knn_pruned')}, B4 "
+          f"{sum(seg_counts.values())}; plain calls {plain}; "
           f"by site { {f'{w}:{q}x{p}:k{k}': n for (w, q, p, k), n in sorted(counts.items())} } "
           f"{ {f'{n}x{c}->{o}': m for (_, n, c, o), m in sorted(seg_counts.items())} }")
-    check(K.launch_count("knn_counted") > 0 and sum(seg_counts.values()) > 0,
-          f"runtime: {what} launched no B1 or no B4")
-    check(K.launch_count("knn_pruned") == 0, f"runtime: {what} launched B3 with the switch unset")
-    check(plain == 0, f"runtime: {what} ran a plain version {plain} times")
+    check(by("knn_counted") > 0 and by("knn_map") > 0 and sum(seg_counts.values()) > 0,
+          f"{phase}: {what} launched no B1 or no B4")
+    check(by("knn_pruned") == 0, f"{phase}: {what} launched B3 with the switch unset")
+    check(plain == 0, f"{phase}: {what} ran a plain version {plain} times")
 
 
 def check_runtime_features(what, sys_):
@@ -1195,19 +1264,19 @@ def runtime_phase(tmp: str, profile: bool = False):
                   for r in sweeps), "runtime: record_synthetic on the card")
     (ref, direct_s, dec_ms, direct_rep), *c = counted(direct)
     check(ref.n_frames == RT_SCANS, f"runtime: the direct run took {ref.n_frames} scans")
-    check_runtime_counts("direct run", *c)
+    check_counts("runtime", "direct run", *c)
     check_runtime_features("direct run", ref)
     (pipe, runner, pipe_s, pipe_rep), *c = counted(lambda: pipelined(1e9))
-    check_runtime_counts("pipeline run", *c)
+    check_counts("runtime", "pipeline run", *c)
     check(runner.n_processed == RT_SCANS and runner.n_dropped == 0,
           f"runtime: the pipeline took {runner.n_processed} scans, dropped {runner.n_dropped}")
     check_gap("pipeline run vs direct run", run_gap(pipe, ref))
     check_runtime_features("pipeline run", pipe)
     res, *c = counted(resumed)
-    check_runtime_counts("resumed run", *c)
+    check_counts("runtime", "resumed run", *c)
     check_gap(f"resumed after {RT_SAVE_AT} scans vs direct run", run_gap(res, ref))
     (lcs, lc_runner, lc_s, lc_rep), *c = counted(lambda: pipelined(RT_LOOP_PERIOD_S))
-    check_runtime_counts("closure run", *c)
+    check_counts("runtime", "closure run", *c)
     check_runtime_features("closure run", lcs)
     check(lc_runner.n_processed == RT_SCANS,
           f"runtime: the closure run took {lc_runner.n_processed} of {RT_SCANS} scans")
@@ -1826,6 +1895,430 @@ def multichip_phase(tmp: str):
     return rows, facts
 
 
+# ---------------------------------------------------------------------------
+# 12. evaluate: the golden-loop table, aggressive motion, the run export, the
+# live viewer, a profiler trace and the hash grid
+# ---------------------------------------------------------------------------
+
+
+def tally(total, *counts):
+    """Adds launch counts {key: n} into ``total``."""
+    for c in counts:
+        for key, n in c.items():
+            total[key] = total.get(key, 0) + n
+
+
+def host_tree(seen):
+    """A recorder's inputs moved to the host, to be saved by a spawned run."""
+    return {k: tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in v)
+            for k, v in seen.items()}
+
+
+def evaluate_rank(i: int, tmp: str, out: str | None):
+    """One run of (a) or (b) in its own process on ``cuda:0``: ranks below
+    the number of default presets run the table's preset ``i``, the rest
+    an aggressive run. The runs go at once, as each is bound by its host
+    thread."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    n = len(evaluate_presets.DEFAULT_PRESETS)
+    if i < n:
+        preset_rank(i, tmp, out)
+    else:
+        aggressive_rank(AG_PRESETS[i - n], tmp)
+
+
+def run_evaluate_ranks(tmp, out):
+    """(a) and (b): ``evaluate_rank`` for each run, spawned at once; waits
+    at most ``MC_JOIN_S`` seconds and stops them all then. Returns the wall
+    time."""
+    n = len(evaluate_presets.DEFAULT_PRESETS) + len(AG_PRESETS)
+    t0 = time.perf_counter()
+    ctx = mp.spawn(evaluate_rank, args=(tmp, out), nprocs=n, join=False)
+    deadline = time.monotonic() + MC_JOIN_S
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline, f"evaluate: the runs ran over {MC_JOIN_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    return time.perf_counter() - t0
+
+
+def merge_seen(knn_seen, seg_seen, f):
+    """A spawned run's recorded B1 and B4 inputs, each site's first kept."""
+    for seen, got in ((knn_seen, f["knn_seen"]), (seg_seen, f["seg_seen"])):
+        for key, v in got.items():
+            seen.setdefault(key, to_dev(v))
+
+
+def preset_rank(i: int, tmp: str, out: str | None):
+    """(a) one preset of the table: the launch counts set to 0 just before
+    ``run_preset`` and read just after, each call site's first B1 and B4
+    inputs recorded, and for ``fr_iosb_rot`` the export check (c) on its
+    system. Its facts to ``tmp/preset{i}.pt``; with ``out``, its closure
+    attempts to ``out/icp_attempts_{preset}.npz`` (``scan``: the attempt's
+    ordinal)."""
+    name = evaluate_presets.DEFAULT_PRESETS[i]
+    with Recorder("knn_counted_cuda") as rec, SegRecorder() as seg, IcpSpy() as icp:
+        t0 = time.perf_counter()
+        r, counts, seg_counts, plain = counted(
+            lambda: evaluate_presets.run_preset(name, EV_FRAMES, torch.float32, device=DEV))
+        secs = time.perf_counter() - t0
+    sys_ = r.pop("system")
+    if out and icp.calls:
+        calls = [(n, *c[1:]) for n, c in enumerate(icp.calls)]
+        save_icp_attempts(os.path.join(out, f"icp_attempts_{name}.npz"), calls, sys_.lc_cfg)
+    facts = {"row": r, "seconds": secs, "counts": counts, "seg_counts": seg_counts,
+             "plain": plain, "rejects": dict(sys_.lc_rejects),
+             "backend_p50_ms": sys_.metrics.report().get("backend", {}).get("p50_ms"),
+             "knn_seen": host_tree(rec.seen), "seg_seen": host_tree(seg.seen)}
+    if name == "fr_iosb_rot":
+        facts["export"] = check_export(sys_, tmp)
+    torch.save(facts, os.path.join(tmp, f"preset{i}.pt"))
+
+
+def preset_table(tmp, wall, launches, knn_seen, seg_seen):
+    """(a) ``run_preset`` over the harness's default presets, as the spawned
+    runs left it (``wall``: their time): their launch counts added to
+    ``launches`` and their recorded inputs to ``knn_seen``/``seg_seen``.
+    Returns the table's rows and (c)'s facts."""
+    names = evaluate_presets.DEFAULT_PRESETS
+    rows, export = [], None
+    for i, name in enumerate(names):
+        f = torch.load(os.path.join(tmp, f"preset{i}.pt"), weights_only=False)
+        r = f["row"]
+        cfg = load_config(name)
+        r["width"] = ("6x4000" if cfg.variant == "livox"
+                      else f"{evaluate_presets.RINGS.get(name, 16)}x{evaluate_presets.COLS}")
+        r["seconds"], r["ok"] = f["seconds"], bool(r["kf_ate"] < evaluate_presets.bound(name))
+        rec = EV_JAX_KF_ATE.get(name)
+        print(f"[evaluate] (a) {name} at {r['width']}, {EV_FRAMES} frames in {f['seconds']:.1f} s "
+              f"({r['scans_per_s']:.3f} scans/s, the card shared by the {len(names)} presets): "
+              f"kf ATE {r['kf_ate']:.4f} m (bound {evaluate_presets.bound(name)}; JAX on its "
+              f"TPU, float32: {'no record' if rec is None else f'{rec} m'}), frame ATE "
+              f"{r['frame_ate']:.4f} m, RPE@5 {r['kf_rpe5']:.4f} m, {r['keyframes']} keyframes, "
+              f"{r['loops']} loops (rejects {f['rejects']}); backend p50 "
+              f"{f['backend_p50_ms'] or float('nan'):.1f} ms")
+        check_counts("evaluate", f"(a) {name}", f["counts"], f["seg_counts"], f["plain"])
+        tally(launches, f["counts"], f["seg_counts"])
+        merge_seen(knn_seen, seg_seen, f)
+        check(r["ok"], f"evaluate: {name} keyframe ATE {r['kf_ate']} misses "
+                       f"{evaluate_presets.bound(name)} m")
+        rows.append(r)
+        export = f.get("export", export)
+    print(f"[evaluate] (a) {len(names)} presets and (b) in {wall:.1f} s (one process each, "
+          "at once); table:\n" + evaluate_presets.format_table(rows))
+    check(export is not None, "evaluate: the export check did not run")
+    return rows, export
+
+
+def aggressive_run(preset: str):
+    """(b) tests/test_golden_motion.py's run at the whole preset: the sensor
+    flies ``aggressive_trajectory`` (its ramp, then yaw bursts), the body
+    and IMU follow through the preset's extrinsic, the fusion starts at the
+    true orientation, loop closure off. Returns the facts."""
+    cfg = load_config(preset)
+    livox = cfg.variant == "livox"
+    world = make_room_world(device=DEV)
+    sensor = aggressive_trajectory()
+    q_lb = torch.tensor(cfg.fusion.q_lb, dtype=torch.float64, device=DEV)
+    t_lb = torch.tensor(cfg.fusion.t_lb, dtype=torch.float64, device=DEV)
+
+    def body(t):
+        p, q = sensor(t)
+        return (p + quat_rotate(q, t_lb.to(t.dtype).expand(p.shape)),
+                quat_normalize(quat_mul(q, q_lb.to(t.dtype))))
+
+    q_sl = quat_conj_np(np.asarray(cfg.fusion.q_lb, float)[None])[0]
+    t_sl = -quat_rotate_np(q_sl[None], np.asarray(cfg.fusion.t_lb, float)[None])[0]
+    lc = dataclasses.replace(cfg.loop_closure, enabled=False)
+    sys_ = LiliOmSystem(cfg.odometry, cfg.fusion, cfg.spin_features, cfg.livox_features, lc,
+                        cfg.imu_noise, device=DEV)
+    _, q0w = pose_at(body, 0.0, device=DEV)
+    sys_.fusion_state = sys_.fusion_state._replace(
+        q=q0w.to(sys_.dtype).repeat(cfg.fusion.window, 1))
+    imu = simulate_imu(body, 0.0, AG_FRAMES * 0.1 + 0.1, rate=200.0, device=DEV)
+    sys_.push_imu(*(host(x) for x in imu))
+    pattern = (livox_pattern(LIVOX_LINES, LIVOX_PTS, device=DEV) if livox
+               else spinning_pattern(n_rings=SYS_RINGS, n_cols=SYS_COLS, device=DEV))
+    n_corr, host_ms = [], []
+    for k in range(AG_FRAMES):
+        ts = k * 0.1
+        sc = simulate_scan(world, body, ts, pattern, period=0.1, t_sl=t_sl, q_sl=q_sl)
+        sync()
+        t1 = time.perf_counter()
+        if livox:
+            out = sys_.process_scan_livox(sc.pts, sc.line.to(torch.int32),
+                                          torch.clamp(sc.rel_time, 0.0, 0.999),
+                                          sc.reflectivity, sc.valid, ts)
+        else:
+            out = sys_.process_scan(sc.pts.reshape(SYS_RINGS, SYS_COLS, 3),
+                                    sc.valid.reshape(SYS_RINGS, SYS_COLS),
+                                    sc.rel_time.reshape(SYS_RINGS, SYS_COLS), ts)
+        n_corr.append(int(out.n_corr))
+        sync()
+        host_ms.append(1e3 * (time.perf_counter() - t1))
+    stamps = np.arange(AG_FRAMES) * 0.1
+    s0 = pose_at(sensor, 0.0, device=DEV)
+    front_gt = np.stack([host(pose_relative(*s0, *pose_at(sensor, s, device=DEV))[0])
+                         for s in stamps])
+    front = ate_rmse(stamps, np.stack(sys_.trajectory), stamps, front_gt, align=False)["rmse"]
+    nk = len(sys_.kf_stamps)
+    p0 = host(pose_at(body, 0.0, device=DEV)[0])
+    kf_gt = np.stack([host(pose_at(body, s, device=DEV)[0]) - p0 for s in sys_.kf_stamps])
+    back = ate_rmse(sys_.kf_stamps, sys_.graph.t[:nk], sys_.kf_stamps, kf_gt,
+                    align=False)["rmse"]
+    acquired = float(np.mean([c > 0 for c in n_corr[2:]]))
+    gyro = torch.linalg.norm(imu.gyrs, dim=-1)
+    return {"preset": preset, "width": "6x4000" if livox else f"{SYS_RINGS}x{SYS_COLS}",
+            "front_ate": front, "back_ate": back, "acquired": acquired, "keyframes": nk,
+            "peak_gyro": float(gyro.max()), "per_scan_ms": sorted(host_ms)[len(host_ms) // 2]}
+
+
+def aggressive_rank(preset: str, tmp: str):
+    """(b) one preset's aggressive run, its launch counts set to 0 just
+    before and read just after, each call site's first B1 and B4 inputs
+    recorded; its facts to ``tmp/aggressive_{preset}.pt``."""
+    with Recorder("knn_counted_cuda") as rec, SegRecorder() as seg:
+        f, counts, seg_counts, plain = counted(lambda: aggressive_run(preset))
+    torch.save({"facts": f, "counts": counts, "seg_counts": seg_counts, "plain": plain,
+                "knn_seen": host_tree(rec.seen), "seg_seen": host_tree(seg.seen)},
+               os.path.join(tmp, f"aggressive_{preset}.pt"))
+
+
+def aggressive_results(tmp, launches, knn_seen, seg_seen):
+    """(b) as the spawned runs left it: printed and checked, the launch
+    counts added to ``launches`` and the inputs to ``knn_seen``/``seg_seen``.
+    Returns {preset: facts}."""
+    out = {}
+    for preset in AG_PRESETS:
+        g = torch.load(os.path.join(tmp, f"aggressive_{preset}.pt"), weights_only=False)
+        f = g["facts"]
+        print(f"[evaluate] (b) aggressive {preset} at {f['width']}, {AG_FRAMES} frames: "
+              f"backend kf ATE {f['back_ate']:.4f} m (bound {AG_BOUND_M}), frontend ATE "
+              f"{f['front_ate']:.4f} m, surf matches on {100 * f['acquired']:.1f} % of "
+              f"scans after 2, {f['keyframes']} keyframes, peak gyro "
+              f"{f['peak_gyro']:.2f} rad/s, per-scan host ms median "
+              f"{f['per_scan_ms']:.1f}")
+        check_counts("evaluate", f"(b) {preset}", g["counts"], g["seg_counts"], g["plain"])
+        tally(launches, g["counts"], g["seg_counts"])
+        merge_seen(knn_seen, seg_seen, g)
+        check(np.isfinite(f["back_ate"]) and f["back_ate"] < AG_BOUND_M,
+              f"aggressive {preset}: backend ATE {f['back_ate']}")
+        check(f["acquired"] >= ACQUIRED_MIN,
+              f"aggressive {preset}: matches on {f['acquired']}")
+        check(f["peak_gyro"] > AG_MIN_GYRO,
+              f"aggressive {preset}: peak gyro {f['peak_gyro']} rad/s, no burst flown")
+        out[f"aggressive_{preset}"] = f
+    return out
+
+
+def check_export(sys_, tmp):
+    """(c) ``export_run`` of (a)'s fr_iosb_rot system (in (a)'s process)."""
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    out_dir = os.path.join(tmp, "export")
+    est = np.stack(sys_.trajectory)
+    n_map = len(sys_.build_global_map())
+    if has_mpl:
+        paths = export_run(out_dir, sys_, est_t=est)
+    else:
+        try:
+            export_run(out_dir, sys_, est_t=est)
+            raise CheckFailed("export_run drew no PNG and raised nothing without matplotlib")
+        except ImportError as e:
+            check("overview.png" in str(e), f"export_run's ImportError names no PNG: {e}")
+        paths = {k: os.path.join(out_dir, f) for k, f in (
+            ("trajectory_tum", "trajectory_kf.tum"), ("map_pcd", "global_map.pcd"),
+            ("map_ply", "global_map.ply"))}
+    nk = len(sys_.kf_stamps)
+    _, t, q = load_tum(paths["trajectory_tum"])
+    gap = max(float(np.abs(t - host(sys_.graph.t[:nk])).max()),
+              float(np.abs(q - host(sys_.graph.q[:nk])).max()))
+    with open(paths["map_ply"], "rb") as f:
+        header = f.read(256).split(b"end_header")[0].decode()
+    n_ply = int(header.split("element vertex ")[1].split()[0])
+    n_pcd = len(read_pcd(paths["map_pcd"]))
+    print(f"[evaluate] (c) export_run: {nk} keyframes in TUM, largest gap to the graph "
+          f"{gap:.2e}; map {n_map} points, PLY {n_ply}, PCD read back {n_pcd}; matplotlib "
+          + ("present: overview.png " + f"{os.path.getsize(paths['overview_png'])} bytes"
+             if has_mpl else "absent: export_run raised its ImportError naming the PNG, "
+             "the other files written"))
+    check(len(t) == nk and gap <= 5e-7 + 1e-9, f"export: TUM keyframes off by {gap}")
+    check(n_ply == n_map == n_pcd and n_map > 0,
+          f"export: PLY {n_ply} / PCD {n_pcd} vertices against the map's {n_map}")
+    if has_mpl:
+        with open(paths["overview_png"], "rb") as f:
+            check(f.read(8) == b"\x89PNG\r\n\x1a\n", "export: overview.png is not a PNG")
+    return {"tum_gap": gap, "map_points": n_map, "png": has_mpl}
+
+
+def check_live_viewer(tmp, launches, names):
+    """(d) ``LiveViewer`` on a short run of apps/run_loop_closure.py's system
+    with a map published every ``LV_PUBLISH_S`` s of scan time, its
+    directory served on a free localhost port; the system's kNN site names
+    added to ``names``."""
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    out_dir = os.path.join(tmp, "live")
+    sys_ = run_loop_closure.make_system(LV_FRAMES, 10.0, device=DEV)
+    names.update(site_names(sys_.odo_cfg, sys_.fusion_cfg, sys_.lc_cfg.submap_cap))
+    sys_.map_publish_period = LV_PUBLISH_S
+    viewer = LiveViewer(out_dir, sys_, figure=has_mpl)
+    port = viewer.serve(0)
+    try:
+        r, counts, seg_counts, plain = counted(
+            lambda: run_loop_closure.run(LV_FRAMES, device=DEV, system=sys_, log=lambda *a: None))
+        check_counts("evaluate", "(d) live run", counts, seg_counts, plain)
+        tally(launches, counts, seg_counts)
+        index = urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=30).read()
+        status = json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}/status.json",
+                                                   timeout=30).read())
+    finally:
+        viewer.close()
+    with open(os.path.join(out_dir, "trajectory.tum")) as f:
+        n_tum = sum(1 for line in f if line.strip() and not line.startswith("#"))
+    print(f"[evaluate] (d) live viewer: {viewer.n_updates} updates over {LV_FRAMES} scans "
+          f"(publish every {LV_PUBLISH_S} s), status {status}, trajectory.tum {n_tum} "
+          f"positions, index.html {len(index)} bytes over http://127.0.0.1:{port}/; figure "
+          f"{'drawn' if has_mpl else 'off (no matplotlib)'}; kf ATE {r['kf_ate']:.4f} m")
+    check(viewer.n_updates >= 1 and status["updates"] == viewer.n_updates,
+          f"live viewer: {viewer.n_updates} updates, status {status}")
+    check(n_tum == status["frames"] > 0, f"live viewer: {n_tum} TUM positions for {status}")
+    check(b"lili_om_tpu_torch" in index, "live viewer: index.html was not served")
+    check(os.path.exists(os.path.join(out_dir, "overview.png")) == has_mpl,
+          "live viewer: overview.png presence does not follow matplotlib's")
+    return {"updates": viewer.n_updates, "status": status}
+
+
+def check_trace(tmp, frame, scans):
+    """(e) ``device_trace`` around main-path ``Frame.step``s: the trace names
+    B1's search and map kernels and B4's."""
+    with device_trace(os.path.join(tmp, "trace")) as prof:
+        for s in scans:
+            frame.step(s)
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat", "").lower() == "kernel"]
+    found = {what: sum(1 for n in names if key in n) for what, key in (
+        ("B1 search", "search_kernel"), ("B1 map", "map_kernel"), ("B4", "segred_kernel"))}
+    print(f"[evaluate] (e) device_trace: {os.path.getsize(prof.trace_path)} bytes, "
+          f"{len(names)} kernel events over {len(scans)} Frame steps; by kernel {found}")
+    check(all(found.values()), f"device_trace: a kernel is missing from the trace: {found}")
+    return found
+
+
+def check_hashgrid(inputs, odo_cfg):
+    """(f) ``hashgrid_knn`` on the card at the main path's odometry search
+    against B1 on the same inputs: every neighbour within the cell (the
+    odometry's NN gate) is found for each query whose 27 neighbour cells
+    fall in distinct buckets (the grid's exactness condition). Where two
+    share a bucket, a point returned twice can displace a neighbour, in the
+    JAX package too: every neighbour missed there must belong to a query
+    whose result holds a point twice."""
+    q, pts, pm, qm, _ = inputs[("knn_counted", odo_cfg.query_cap, odo_cfg.map_cap, 5)]
+    cell = odo_cfg.nn_gate
+    grid = build_grid(pts, pm, cell, n_buckets=HG_BUCKETS, bucket_cap=HG_CAP)
+    d_g, i_g = hashgrid_knn(q, grid, k=5)
+    d_b, i_b = K.knn_counted_cuda(q, pts, 5, pm, qm)
+    within = (d_b < cell * cell) & qm[:, None]
+    # a neighbour is found when the grid returns its index (or, on a tie in
+    # distance, another point at its distance). Slots are not compared one
+    # for one: two of a query's 27 cells that hash to one bucket bring its
+    # points twice, as in the JAX package
+    found = ((i_g[:, None, :] == i_b[:, :, None])
+             | torch.isclose(d_g[:, None, :], d_b[:, :, None], rtol=1e-6, atol=0.0)).any(-1)
+    hb = torch.sort(neighbour_buckets(q, grid), dim=1).values
+    distinct = ~(hb[:, 1:] == hb[:, :-1]).any(-1)
+    exact = within & distinct[:, None]
+    recall = float((found & exact).sum()) / max(int(exact.sum()), 1)
+    recall_all = float((found & within).sum()) / max(int(within.sum()), 1)
+    shared = int((~distinct & qm).sum())
+    pair = (i_g[:, :, None] == i_g[:, None, :]) & torch.isfinite(d_g)[:, :, None]
+    twice = torch.triu(pair, diagonal=1).flatten(1).any(-1) & qm
+    dup = int(twice.sum())
+    unexplained = int((within & ~found & ~twice[:, None]).sum())
+    kept, valid = int(grid.bucket_mask.sum()), int(pm.sum())
+    grid_ms = cuda_ms(lambda: hashgrid_knn(q, grid, k=5), iters=5)
+    build_ms = cuda_ms(lambda: build_grid(pts, pm, cell, n_buckets=HG_BUCKETS,
+                                          bucket_cap=HG_CAP), iters=5)
+    b1_ms = cuda_ms(lambda: K.knn_counted_cuda(q, pts, 5, pm, qm), iters=20)
+    print(f"[evaluate] (f) hash grid {q.shape[0]}x{pts.shape[0]}, cell {cell} m, "
+          f"{HG_BUCKETS}x{HG_CAP} buckets ({kept} of {valid} map points kept): recall inside "
+          f"the gate {recall:.6f} over the {int(exact.sum())} neighbours of queries with 27 "
+          f"distinct buckets; {shared} valid queries share a bucket among their cells, "
+          f"{dup} got a point twice; recall over all {int(within.sum())} neighbours "
+          f"{recall_all:.6f}, {unexplained} missed where no point came twice; hashgrid_knn "
+          f"{grid_ms:.4f} ms + build {build_ms:.4f} ms, B1 per call {b1_ms:.4f} ms")
+    check(recall == 1.0 and unexplained == 0 and kept == valid,
+          f"hash grid: recall {recall} inside the gate, {unexplained} neighbours missed "
+          f"where no point came twice, {kept} of {valid} points kept")
+    return {"recall": recall, "recall_all": recall_all, "shared_bucket_queries": shared,
+            "duplicates": dup, "unexplained": unexplained, "grid_ms": grid_ms, "build_ms": build_ms, "b1_ms": b1_ms,
+            "kept": kept, "valid": valid}
+
+
+def new_site_rows(known, knn_seen, seg_seen, launches, names):
+    """B1 and B4 against their plain versions at the sites of the evaluate
+    path whose shapes no earlier phase compared (``known``: the rows so
+    far)."""
+    knn_known = {(r["name"].split("[")[0], r["shape"][0], r["shape"][1],
+                  int(r["name"].rsplit("_k", 1)[1].split("_")[0]))
+                 for r in known if r["name"].startswith(("knn_counted[", "knn_dense["))}
+    seg_known = {tuple(r["shape"]) for r in known if r["name"].startswith("segred[")}
+    fresh = {("knn_counted",) + key: v for key, v in knn_seen.items()
+             if ("knn_counted",) + key not in knn_known}
+    rows = compare_sites("evaluate_", fresh, launches, names)
+    for key, inputs in sorted(seg_seen.items()):
+        if tuple(key[2:]) not in seg_known:
+            rows.append(compare_segred("evaluate", key, inputs,
+                                       launches.get(("segred",) + key[2:], 0)))
+    print(f"[evaluate] kernels at new site shapes: {len(fresh)} B1 sites, "
+          f"{sum(1 for r in rows if r['name'].startswith('segred['))} B4 sites "
+          f"({len(knn_seen)} and {len(seg_seen)} sites on the path)")
+    return rows
+
+
+def evaluate_phase(tmp, out, frame, trace_scans, main_inputs, odo_cfg, known_rows):
+    """Phase 12 (``out``: ``--out``'s directory or None). Returns (its facts,
+    kernel rows at the site shapes that are new on its path)."""
+    t0 = time.perf_counter()
+    launches = {}
+    names = {}
+    for name in evaluate_presets.DEFAULT_PRESETS:
+        cfg = load_config(name)
+        names.update(site_names(cfg.odometry, cfg.fusion, cfg.loop_closure.submap_cap))
+    # B1 and B4 inputs at each call site's first call, over (a), (b), (d)
+    times, mark = {}, [time.perf_counter()]
+
+    def lap(step):
+        now = time.perf_counter()
+        times[step], mark[0] = now - mark[0], now
+
+    with Recorder("knn_counted_cuda") as rec, SegRecorder() as seg:
+        wall = run_evaluate_ranks(tmp, out)
+        rows, export = preset_table(tmp, wall, launches, rec.seen, seg.seen)
+        facts = {"table": rows, "export": export}
+        facts.update(aggressive_results(tmp, launches, rec.seen, seg.seen))
+        lap("(a)+(b)+(c)")
+        facts["live"] = check_live_viewer(tmp, launches, names)
+        lap("(d)")
+    facts["trace"] = check_trace(tmp, frame, trace_scans)
+    lap("(e)")
+    facts["hashgrid"] = check_hashgrid(main_inputs, odo_cfg)
+    lap("(f)")
+    facts["seconds"] = time.perf_counter() - t0
+    kernel_rows = new_site_rows(known_rows, rec.seen, seg.seen, launches, names)
+    lap("kernel checks")
+    facts["times"] = times
+    print(f"[evaluate] phase {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    return facts, kernel_rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -1930,17 +2423,7 @@ def main(argv=None) -> int:
     check_system(sys_, sys_ms, sys_counts, facts)
     check(sum(sys_seg_counts.values()) > 0, "system: B4 did not launch")
     if args.out:
-        # every closure attempt's submaps and ICP result, for a replay
-        # through the JAX reference (python3 -m tools.replay_icp)
-        stack = lambda j: np.stack([c[1][j].cpu().numpy() for c in icp_calls])
-        np.savez_compressed(
-            os.path.join(args.out, "icp_attempts.npz"),
-            scan=np.array([c[0] for c in icp_calls]), src=stack(0), src_mask=stack(1),
-            tgt=stack(2), tgt_mask=stack(3), n_iters=sys_.lc_cfg.icp_iters,
-            trim=sys_.lc_cfg.icp_trim,
-            t=np.stack([c[2].t.cpu().numpy() for c in icp_calls]),
-            q=np.stack([c[2].q.cpu().numpy() for c in icp_calls]),
-            fitness=np.array([float(c[2].fitness) for c in icp_calls]))
+        save_icp_attempts(os.path.join(args.out, "icp_attempts.npz"), icp_calls, sys_.lc_cfg)
     names = site_names(sys_.odo_cfg, sys_.fusion_cfg, sys_.lc_cfg.submap_cap)
     map_rows = []
     for (q, p, k), inputs in sorted(sys_inputs.items()):
@@ -2013,6 +2496,18 @@ def main(argv=None) -> int:
             os.environ["LILI_OM_KNN_PRUNED"] = prev
     kernels += mc_rows
 
+    # 12. evaluate, the pruned switch unset
+    prev = os.environ.pop("LILI_OM_KNN_PRUNED", None)
+    tmp = tempfile.mkdtemp(prefix="lili_evaluate_")
+    try:
+        ev_facts, ev_rows = evaluate_phase(tmp, args.out, frame, scans[N_WARM:N_WARM + 3],
+                                           main_inputs, cfgs.odometry, kernels)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if prev is not None:
+            os.environ["LILI_OM_KNN_PRUNED"] = prev
+    kernels += ev_rows
+
     # 11. profile
     if args.profile:
         timed = sorted(host_ms[N_WARM:])
@@ -2026,7 +2521,7 @@ def main(argv=None) -> int:
                                   **facts},
                        "livox": {"per_scan_host_ms": lvx_ms, "lc_rejects": lvx_rejects,
                                  **lvx_facts},
-                       "runtime": rt_facts, "multichip": mc_facts,
+                       "runtime": rt_facts, "multichip": mc_facts, "evaluate": ev_facts,
                        "kernels": kernels + [unmasked]}, f, indent=1)
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

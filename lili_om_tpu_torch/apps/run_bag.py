@@ -3,7 +3,8 @@
 seq.bag``, README.md:57-76).
 
     python -m lili_om_tpu_torch.apps.run_bag seq.bag --preset fr_iosb_rot \\
-        --lidar /velodyne_points --imu /imu/data --map out.pcd [--cpu] [--serial]
+        --lidar /velodyne_points --imu /imu/data --map out.pcd [--cpu] [--serial] \\
+        [--live-viz DIR [--live-port N]] [--export-dir DIR]
 
 Livox bags (``livox_ros_driver/CustomMsg``) take the Livox extractor;
 PointCloud2 bags the spinning extractor with the ring field (or the
@@ -16,8 +17,13 @@ backend on one worker): with the two on their own threads every kernel
 launch costs more host time, and the overlapped replay ran at 0.56–0.68×
 the serial scan rate on an H100 80GB HBM3 at 700 W (PERF.md §6;
 ``PipelineRunner(overlap=True)`` still runs it). On the CPU frontend and
-backend overlap, as in the JAX runner, unless ``--serial``. The JAX
-runner's ``--live-viz`` and ``--export-dir`` are not ported.
+backend overlap, as in the JAX runner, unless ``--serial``.
+
+``--live-viz DIR`` refreshes a live viewer directory at the map-publish
+cadence (``utils/live_viz.py``, the rviz-session analog), served over HTTP
+with ``--live-port``; ``--export-dir`` writes the TUM trajectory, the PCD
+and PLY map and the overview PNG after the run (``utils/viz.py``). The
+figures need matplotlib.
 """
 from __future__ import annotations
 
@@ -90,6 +96,12 @@ def main(argv=None) -> int:
                     help="frontend and backend on one worker (always so on the card)")
     ap.add_argument("--ingest-hosts", type=int, default=1,
                     help="decode the raw scan stream on N parallel ingest workers")
+    ap.add_argument("--live-viz", default=None, metavar="DIR",
+                    help="live viewer directory (refreshes at the map-publish cadence)")
+    ap.add_argument("--live-port", type=int, default=0,
+                    help="with --live-viz: serve DIR over HTTP on this port (0: a free one)")
+    ap.add_argument("--export-dir", default=None,
+                    help="write TUM trajectory + PCD/PLY map + overview PNG")
     args = ap.parse_args(argv)
 
     from ..io.livox import convert_internal_imu
@@ -106,6 +118,13 @@ def main(argv=None) -> int:
                         device="cpu" if args.cpu else None)
     sys_.if_to_deskew = cfg.if_to_deskew  # yaml lidar_odometry/if_to_deskew
     sys_.mapping_interval = cfg.mapping_interval  # yaml backend_fusion/mapping_interval
+    viewer = None
+    if args.live_viz:
+        from ..utils.live_viz import LiveViewer
+
+        viewer = LiveViewer(args.live_viz, sys_)
+        port = viewer.serve(args.live_port)
+        print(f"live viewer: http://localhost:{port}/ -> {args.live_viz}")
     overlap = not args.serial and sys_.device.type == "cpu"
     # lossless offline replay: drop_when_full=False
     runner = PipelineRunner(sys_, overlap=overlap, drop_when_full=False,
@@ -147,7 +166,11 @@ def main(argv=None) -> int:
                 break
         ingest.close()
     finally:
-        runner.stop(drain=True)
+        try:
+            runner.stop(drain=True)
+        finally:
+            if viewer is not None:
+                viewer.close()
     wall = time.time() - t0
     print(f"\n{runner.n_processed} scans, {len(sys_.kf_stamps)} keyframes, "
           f"{int(sys_.graph.n_loops)} loop factors "
@@ -157,6 +180,12 @@ def main(argv=None) -> int:
     if args.map:
         n = sys_.export_map(args.map)
         print(f"map: {n} points -> {args.map}")
+    if args.export_dir:
+        from ..utils.viz import export_run
+
+        est = np.stack(sys_.trajectory) if sys_.trajectory else None
+        for k, v in export_run(args.export_dir, sys_, est_t=est).items():
+            print(f"exported {k}: {v}")
     return 0
 
 

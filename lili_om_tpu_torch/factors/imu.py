@@ -1,5 +1,8 @@
-"""IMU preintegration factor with hand-derived Jacobians (port of
-``lili_om_tpu/factors/imu.py:imu_factor_analytic`` and ``retract_state``).
+"""IMU preintegration factor (port of ``lili_om_tpu/factors/imu.py``): the
+whitened residual with hand-derived Jacobians (``imu_factor_analytic``, the
+fusion step's) and with Jacobians by forward-mode autodiff through the
+exact retraction (``imu_factor``, the reference the analytic form is held
+against).
 
 Keyframe tangent ordering (15): [δt, δθ, δv, δba, δbg].
 """
@@ -14,11 +17,35 @@ from ..utils.math import (exp_so3, hat, quat_conj, quat_left_matrix, quat_mul,
                           quat_normalize, quat_right_matrix, quat_to_rotmat)
 
 
+class KeyframeState:
+    """Not a class used at runtime: documents the per-keyframe state layout
+    used across the backend, t(3), q(4), v(3), ba(3), bg(3); tangent dim 15."""
+
+
 def retract_state(t, q, v, ba, bg, delta):
     """Apply a 15-dof tangent to keyframe state(s) (batched over leading dims)."""
     return (t + delta[..., 0:3],
             quat_normalize(quat_mul(q, exp_so3(delta[..., 3:6]))),
             v + delta[..., 6:9], ba + delta[..., 9:12], bg + delta[..., 12:15])
+
+
+def imu_factor(p: Preint, noise: ImuNoise, ti, qi, vi, bai, bgi, tj, qj, vj, baj, bgj,
+               W=None):
+    """Whitened residual (15,) and Jacobians (15,15)×2 w.r.t. the tangents of
+    keyframes i and j, by ``torch.func.jacfwd`` through
+    :func:`retract_state` (ImuFactor::Evaluate, ImuFactor.h:30-141, up to an
+    orthogonal whitening factor). ``W``: precomputed :func:`sqrt_info`."""
+    if W is None:
+        W = sqrt_info(p)
+
+    def res(di, dj):
+        si = retract_state(ti, qi, vi, bai, bgi, di)
+        sj = retract_state(tj, qj, vj, baj, bgj, dj)
+        return W @ preint_residual(p, noise, *si, *sj)
+
+    z = torch.zeros(15, dtype=p.dp.dtype, device=p.dp.device)
+    return (res(z, z), torch.func.jacfwd(res, argnums=0)(z, z),
+            torch.func.jacfwd(res, argnums=1)(z, z))
 
 
 def imu_factor_analytic(p: Preint, noise: ImuNoise, ti, qi, vi, bai, bgi,

@@ -1,5 +1,6 @@
 """Prior factors (port of ``lili_om_tpu/factors/prior.py``): the
-marginalization (Schur-complement) prior and the speed-bias prior."""
+marginalization (Schur-complement) prior, its inert start-up placeholder and
+the speed-bias prior."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -49,3 +50,14 @@ def speed_bias_prior(v, ba, bg, v0, ba0, bg0, weights=None):
         weights = torch.full((9,), 15.0, dtype=v.dtype, device=v.device)
     r = weights * torch.cat([v - v0, ba - ba0, bg - bg0])
     return r, torch.diag(weights)
+
+
+def identity_prior(window_k: int, dtype=torch.float32, device=None) -> MarginalPrior:
+    """An inert prior placeholder (``valid`` false) for pipeline start-up."""
+    D = 15 * window_k
+    z = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    return MarginalPrior(
+        J=z(D, D), r0=z(D), t0=z(window_k, 3),
+        q0=torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device).repeat(window_k, 1),
+        v0=z(window_k, 3), ba0=z(window_k, 3), bg0=z(window_k, 3),
+        valid=torch.zeros((), dtype=torch.bool, device=device))

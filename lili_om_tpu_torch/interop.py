@@ -2,8 +2,8 @@
 
 The system has no learned weights: its parameters are the carried states.
 The dicts are keyed by the field names of the JAX package's NamedTuples
-(``OdometryState``, ``FusionState``, ``PoseGraph``), so a JAX state or graph
-can be carried into the port and back; nested tuples (``preints``, ``prior``)
+(``OdometryState``, ``FusionState``, ``PoseGraph``, ``VoxelHashGrid``), so a
+JAX state, graph or hash grid can be carried into the port and back; nested tuples (``preints``, ``prior``)
 flatten to dotted keys such as ``"prior.J"``. Float arrays take the
 requested dtype, integer arrays become int32 and boolean arrays stay
 boolean, as in the states of both packages.
@@ -18,6 +18,7 @@ from .factors.prior import MarginalPrior
 from .models.fusion import FusionState
 from .models.odometry import OdometryState
 from .models.pose_graph import PoseGraph
+from .ops.hashgrid import VoxelHashGrid
 from .ops.preintegration import Preint
 
 _NESTED = {"preints": Preint, "prior": MarginalPrior}
@@ -76,3 +77,11 @@ def pose_graph_to_numpy(graph: PoseGraph) -> dict:
 
 def pose_graph_from_numpy(d: dict, dtype=torch.float32, device=None) -> PoseGraph:
     return _from_numpy(PoseGraph, d, dtype, resolve_device(device))
+
+
+def hashgrid_to_numpy(grid: VoxelHashGrid) -> dict:
+    return _to_numpy(grid)
+
+
+def hashgrid_from_numpy(d: dict, dtype=torch.float32, device=None) -> VoxelHashGrid:
+    return _from_numpy(VoxelHashGrid, d, dtype, resolve_device(device))

@@ -117,6 +117,11 @@ def knn(queries: torch.Tensor, points: torch.Tensor, k: int = 5,
     return best_d, best_i
 
 
+def gather_neighbors(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(P,3), (Q,k) → (Q,k,3)."""
+    return points[idx]
+
+
 def _check_cloud(pts, mask, what: str, device=None, contiguous: bool = True):
     """A cloud a kernel reads: float32 (n, 3) on the CUDA device ``device``
     (default its own), contiguous where the kernel reads it in place (else

@@ -1,5 +1,6 @@
-"""IMU preintegration (port of ``lili_om_tpu/ops/preintegration.py``, the
-forms the fusion step runs).
+"""IMU preintegration (port of ``lili_om_tpu/ops/preintegration.py``: the
+parallel forms the fusion step runs, and the sequential midpoint forms,
+``integrate`` and ``propagate_world``, one step a sample).
 
 State ordering follows the reference: ``[p(0:3), θ(3:6), v(6:9), ba(9:12),
 bg(12:15)]``. The reference's quirks are kept: the ``-1/6`` factor in
@@ -66,6 +67,75 @@ def init_preint(ba: torch.Tensor, bg: torch.Tensor, noise: ImuNoise) -> Preint:
         ba=ba.clone(), bg=bg.clone(),
         sum_dt=torch.zeros((), dtype=dtype, device=dev),
     )
+
+
+def _midpoint_step(p: Preint, acc0, gyr0, acc1, gyr1, dt, noise_diag) -> Preint:
+    """One midpoint step (Preintegration.h:79-148). ``noise_diag``: (18,),
+    so ``V·Q·Vᵀ = (V∘q)·Vᵀ``."""
+    un_acc_0 = quat_rotate(p.dq, acc0 - p.ba)
+    un_gyr = 0.5 * (gyr0 + gyr1) - p.bg
+    dq1 = quat_normalize(quat_mul(p.dq, exp_so3(un_gyr * dt)))
+    un_acc = 0.5 * (un_acc_0 + quat_rotate(dq1, acc1 - p.ba))
+    dp1 = p.dp + p.dv * dt + 0.5 * un_acc * dt * dt
+    dv1 = p.dv + un_acc * dt
+    F, W = _step_FW(p.dq[None], dq1[None], (acc0 - p.ba)[None], (acc1 - p.ba)[None],
+                    un_gyr[None], dt.reshape(1), noise_diag)
+    F, W = F[0], W[0]
+    return Preint(dp1, dq1, dv1, F @ p.jacobian, F @ p.covariance @ F.T + W,
+                  p.ba, p.bg, p.sum_dt + dt)
+
+
+def _step_mask(dts, mask):
+    if mask is None:
+        return torch.ones(dts.shape, dtype=torch.bool, device=dts.device)
+    return mask
+
+
+def integrate(noise: ImuNoise, ba, bg, acc0, gyr0, dts, accs, gyrs,
+              mask: Optional[torch.Tensor] = None) -> Preint:
+    """Integrate an IMU interval one sample at a time (the scanned form of
+    repeated ``push_back``, Preintegration.h:57-62). ``acc0, gyr0``: the
+    sample at the interval start; ``dts`` (N,), ``accs``/``gyrs`` (N,3): the
+    samples at each step end; masked (False) steps are exact no-ops and keep
+    the carried previous sample."""
+    dtype = accs.dtype
+    p = init_preint(ba.to(dtype), bg.to(dtype), noise)
+    ncov = noise.noise_diag(dtype, accs.device)
+    mask = _step_mask(dts, mask)
+    a0, g0 = acc0.to(dtype), gyr0.to(dtype)
+    for k in range(dts.shape[0]):
+        valid = mask[k]
+        dt = torch.where(valid, dts[k], 0.0).to(dtype)
+        p1 = _midpoint_step(p, a0, g0, accs[k], gyrs[k], dt, ncov)
+        p = Preint(*[torch.where(valid, new, old) for new, old in zip(p1, p)])
+        a0 = torch.where(valid, accs[k], a0)
+        g0 = torch.where(valid, gyrs[k], g0)
+    return p
+
+
+def propagate_world(t, q, v, ba, bg, noise: ImuNoise, acc0, gyr0, dts, accs, gyrs,
+                    mask: Optional[torch.Tensor] = None):
+    """World-frame midpoint IMU state propagation one sample at a time
+    (BackendFusion.cpp:801-827). Returns the propagated ``(t, q, v)`` and
+    the last consumed sample ``(acc, gyr)``, so callers can chain intervals."""
+    dtype = accs.dtype
+    g = noise.g_vec(dtype, accs.device)
+    mask = _step_mask(dts, mask)
+    t, q, v, a0, g0 = (x.to(dtype) for x in (t, q, v, acc0, gyr0))
+    for k in range(dts.shape[0]):
+        valid = mask[k]
+        dt = torch.where(valid, dts[k], 0.0).to(dtype)
+        a1, g1 = accs[k], gyrs[k]
+        un_acc_0 = quat_rotate(q, a0 - ba) + g
+        un_gyr = 0.5 * (g0 + g1) - bg
+        q1 = quat_normalize(quat_mul(q, exp_so3(un_gyr * dt)))
+        un_acc = 0.5 * (un_acc_0 + quat_rotate(q1, a1 - ba) + g)
+        t = t + v * dt + 0.5 * un_acc * dt * dt
+        v = v + un_acc * dt
+        q = torch.where(valid, q1, q)
+        a0 = torch.where(valid, a1, a0)
+        g0 = torch.where(valid, g1, g0)
+    return t, q, v, a0, g0
 
 
 def prefix_scan(combine, xs):

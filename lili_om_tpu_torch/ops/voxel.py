@@ -1,6 +1,7 @@
-"""Fixed-shape voxel-grid downsampling (port of ``lili_om_tpu/ops/voxel.py``,
-the functions on the per-scan path, and the host-side exact downsample of
-the loop-closure submaps).
+"""Fixed-shape voxel-grid downsampling (port of ``lili_om_tpu/ops/voxel.py``:
+the functions on the per-scan path, the host-side exact downsample of the
+loop-closure submaps, and the helpers no path calls, the occupancy-tiered
+merge and the close-point filter).
 
 Centroid per voxel, computed as one sort by a scrambled voxel key plus one
 sorted segment sum (``ops/segred.py``, kernel B4 on the card), with a
@@ -235,6 +236,53 @@ def merge_voxel_entries(cells, sums, cnt, valid, num_out: int,
     s2, c2, v2 = reduce(w * ((selbits >> 1) & 1).to(sums.dtype))
     cells2 = torch.where(v2[:, None], out_cells, 0)
     return (out_cells, out_sums, out_cnt, out_valid), (cells2, s2, c2, v2)
+
+
+def merge_voxel_entries_tiered(cells, sums, cnt, valid, num_out: int, table_rows: int,
+                               tiers: tuple = (), second_sel=None, primary_sel=None):
+    """:func:`merge_voxel_entries` sorting only the smallest ``tier`` of the
+    table that provably holds the merge (not the production default, as in
+    the JAX package). Rows ``[0:table_rows)`` are the table, the rest delta
+    rows (always included). Tier ``B`` is taken iff no valid table row lies
+    at or past ``B`` and ``n_valid(table[:B]) + n_valid(delta) ≤ B``; then
+    the output is the sliced merge padded with invalid zero rows to
+    ``num_out``, equal to the full merge's (sums up to the summation order
+    inside a segment).
+
+    JAX decides the tier on the device (nested ``lax.cond``); eager PyTorch
+    cannot branch without reading the predicate, so this reads one boolean
+    per tier to the host (one sync a call)."""
+    cand = sorted(b for b in tiers if b < num_out)
+    chosen = None
+    if cand:
+        d_valid = torch.sum(valid[table_rows:].to(torch.int32))
+        fits = torch.stack([
+            ~torch.any(valid[b:table_rows])
+            & (torch.sum(valid[:b].to(torch.int32)) + d_valid <= b) for b in cand])
+        chosen = next((b for b, ok in zip(cand, fits.tolist()) if ok), None)
+    if chosen is None:
+        return merge_voxel_entries(cells, sums, cnt, valid, num_out,
+                                   second_sel=second_sel, primary_sel=primary_sel)
+    B = chosen
+    cut = lambda x: None if x is None else torch.cat([x[:B], x[table_rows:]])
+    out = merge_voxel_entries(cut(cells), cut(sums), cut(cnt), cut(valid), B,
+                              second_sel=cut(second_sel), primary_sel=cut(primary_sel))
+    pad = num_out - B
+
+    def padded(*outs):
+        return tuple(torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in outs)
+
+    if second_sel is None:
+        return padded(*out)
+    return tuple(padded(*o) for o in out)
+
+
+def remove_close_points(pts: torch.Tensor, mask: torch.Tensor, min_range: float) -> torch.Tensor:
+    """Validity update dropping points closer than ``min_range`` and
+    non-finite ones (removeClosedPointCloud: LiLi-OM Preprocessing.cpp:225-226
+    [0.1 m], ROT Preprocessing.cpp:281 [3.0 m])."""
+    r2 = torch.sum(pts * pts, dim=-1)
+    return mask & (r2 >= min_range * min_range) & torch.all(torch.isfinite(pts), dim=-1)
 
 
 def pad_cloud(pts: torch.Tensor, mask: torch.Tensor, cap: int):

@@ -1,6 +1,6 @@
 """Analytic ground-truth trajectories + exact IMU synthesis (port of
-``lili_om_tpu/sim/trajectory.py``, the circle trajectory the benchmark
-drives). A trajectory is a closure ``t → (p, q)`` over a tensor of times
+``lili_om_tpu/sim/trajectory.py``: the circle the benchmark drives, the
+corridor run, the aggressive handheld motion and the static pose). A trajectory is a closure ``t → (p, q)`` over a tensor of times
 (any shape; p is (...,3), q is (...,4)); IMU samples come from forward-mode
 derivatives through it:
 
@@ -32,6 +32,56 @@ def circle_trajectory(radius: float = 20.0, period: float = 60.0, height_amp: fl
         yaw = th + math.pi / 2.0
         zero = torch.zeros_like(yaw)
         return p, exp_so3(torch.stack([zero, zero, yaw], dim=-1))
+
+    return traj
+
+
+def straight_trajectory(speed: float = 2.0, wiggle_amp: float = 0.5, wiggle_period: float = 8.0,
+                        yaw_amp: float = 0.08) -> Trajectory:
+    """Corridor-style forward motion with a small lateral wiggle and a yaw
+    oscillation (keeps the problem observably 6-dof)."""
+    w = 2.0 * math.pi / wiggle_period
+
+    def traj(t):
+        p = torch.stack([speed * t, wiggle_amp * torch.sin(w * t),
+                         0.1 * torch.sin(0.5 * w * t)], dim=-1)
+        ang = torch.stack([0.02 * torch.sin(w * t), 0.02 * torch.cos(0.7 * w * t),
+                           yaw_amp * torch.sin(0.8 * w * t)], dim=-1)
+        return p, exp_so3(ang)
+
+    return traj
+
+
+def aggressive_trajectory(speed: float = 1.5, yaw_amp: float = 1.0, burst_amp: float = 0.8,
+                          burst_freq: float = 2.2, ramp: float = 4.0) -> Trajectory:
+    """Fast-rotation, speed-varying handheld-style motion: yaw bursts above
+    1.5 rad/s (peak ≈ ``yaw_amp·0.8 + burst_amp·burst_freq`` ≈ 2.6 rad/s at
+    the defaults), ±50 % speed modulation and gentle roll/pitch rocking,
+    starting at rest."""
+
+    def traj(t):
+        u = t - ramp * (1.0 - torch.exp(-t / ramp))  # s(0)=0, s'(0)=0, s'(∞)=1
+        p = torch.stack([speed * u + 1.0 * torch.sin(0.6 * u), 2.0 * torch.sin(0.35 * u),
+                         0.3 * torch.sin(0.9 * u)], dim=-1)
+        yaw = yaw_amp * torch.sin(0.8 * u) + burst_amp * torch.sin(burst_freq * u)
+        roll = 0.08 * torch.sin(1.3 * u)
+        pitch = 0.08 * torch.sin(1.1 * u + 0.7)
+        zero = torch.zeros_like(yaw)
+        q = quat_mul(exp_so3(torch.stack([zero, zero, yaw], dim=-1)),
+                     exp_so3(torch.stack([roll, pitch, zero], dim=-1)))
+        return p, quat_normalize(q)
+
+    return traj
+
+
+def static_trajectory(p0=(0.0, 0.0, 0.0)) -> Trajectory:
+    """A pose at rest at ``p0`` with the identity orientation (broadcast over
+    the times' shape, where the JAX closure returns one quaternion)."""
+
+    def traj(t):
+        p = torch.tensor(p0, dtype=t.dtype, device=t.device) * torch.ones_like(t)[..., None]
+        q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=t.dtype, device=t.device)
+        return p, q.expand(t.shape + (4,))
 
     return traj
 

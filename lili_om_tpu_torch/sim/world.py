@@ -90,6 +90,28 @@ def make_room_world(size=(60.0, 40.0, 8.0), n_poles: int = 12, seed: int = 0,
     return b.build(dtype=dtype, device=device)
 
 
+def make_corridor_world(length: float = 120.0, width: float = 8.0, height: float = 5.0,
+                        pole_spacing: float = 7.0, dtype=torch.float32, device=None) -> World:
+    """Long corridor with poles along both walls: the straight-trajectory
+    odometry scene. The box is flush (floor, walls and end caps meet), so
+    edges come only from poles and plane junctions."""
+    cx, hx = length / 2 - 10, length / 2 + 20
+    b = WorldBuilder()
+    b.add_plane((cx, 0, -1.5), (0, 0, 1), (1, 0, 0), hx, width / 2)
+    b.add_plane((cx, 0, -1.5 + height), (0, 0, -1), (1, 0, 0), hx, width / 2)
+    b.add_plane((cx, -width / 2, -1.5 + height / 2), (0, 1, 0), (1, 0, 0), hx, height / 2)
+    b.add_plane((cx, width / 2, -1.5 + height / 2), (0, -1, 0), (1, 0, 0), hx, height / 2)
+    b.add_plane((cx + hx, 0, -1.5 + height / 2), (-1, 0, 0), (0, 1, 0), width / 2, height / 2)
+    b.add_plane((cx - hx, 0, -1.5 + height / 2), (1, 0, 0), (0, 1, 0), width / 2, height / 2)
+    x = 0.0
+    side = 1.0
+    while x < length + 5:
+        b.add_pole((x, side * (width / 2 - 0.8), -1.0), radius=0.15, height=4.0)
+        side = -side
+        x += pole_spacing
+    return b.build(dtype=dtype, device=device)
+
+
 def ray_cast(world: World, origins: torch.Tensor, dirs: torch.Tensor,
              min_range: float = 0.5, max_range: float = 200.0) -> torch.Tensor:
     """Cast rays against all primitives; masked min over hits. Returns the

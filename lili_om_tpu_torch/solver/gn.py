@@ -40,3 +40,15 @@ def gn_update(J: torch.Tensor, r: torch.Tensor, damping: float = 1e-6,
     """One Gauss-Newton step δ = (JᵀJ)⁻¹·(−Jᵀr) from batched rows."""
     H, b = block_hessian(J, r, w)
     return solve_normal(H, b, damping)
+
+
+def scatter_block(H: torch.Tensor, b: torch.Tensor | None, Hij: torch.Tensor,
+                  bi: torch.Tensor | None, i: int, j: int, bs: int):
+    """Add a (bs×bs) block into the (i,j) slot of a big dense H, and ``bi``
+    into slot i of b (a new H and b; the inputs are not written)."""
+    H = H.clone()
+    H[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs] += Hij
+    if b is not None and bi is not None:
+        b = b.clone()
+        b[i * bs:(i + 1) * bs] += bi
+    return H, b

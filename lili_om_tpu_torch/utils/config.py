@@ -8,8 +8,9 @@ unknown keys fall back to the defaults with a warning, as the reference's
 from __future__ import annotations
 
 import dataclasses
+import json
 import warnings
-from typing import Optional
+from typing import Any, Optional
 
 from ..models.fusion import FusionConfig
 from ..models.odometry import OdometryConfig
@@ -266,3 +267,17 @@ PRESETS = {
     "utbm_rot": config_utbm_rot,
     "synthetic": config_synthetic,
 }
+
+
+def dump_config(cfg: SystemConfig) -> str:
+    """JSON dump (diagnostics, reproducibility): the same text as the JAX
+    package's ``dump_config`` for the same preset."""
+
+    def enc(o: Any):
+        if hasattr(o, "_asdict"):
+            return o._asdict()
+        if dataclasses.is_dataclass(o):
+            return dataclasses.asdict(o)
+        return str(o)
+
+    return json.dumps(dataclasses.asdict(cfg), default=enc, indent=2)

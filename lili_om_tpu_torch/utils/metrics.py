@@ -1,6 +1,7 @@
-"""Per-stage timing aggregation and the throughput counter (port of
-``StageMetrics`` in ``lili_om_tpu/utils/metrics.py``; its ``jax.profiler``
-wrapper ``device_trace`` has no counterpart here yet).
+"""Per-stage timing aggregation, the throughput counter and a profiler
+trace context (port of ``lili_om_tpu/utils/metrics.py``: ``StageMetrics``,
+and ``device_trace`` over ``torch.profiler`` where JAX's wraps
+``jax.profiler``).
 
 PyTorch returns before the card finishes, so a host clock around a stage
 measures its enqueue. ``sync``, when given (``torch.cuda.synchronize`` on
@@ -10,11 +11,13 @@ each sample is the stage's own time on the card.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Callable, Dict, Iterator, List
 
 import numpy as np
+import torch
 
 
 class StageMetrics:
@@ -73,3 +76,24 @@ class StageMetrics:
                 lines.append(f"{name:24s} n={st['n']:<5d} mean={st['mean_ms']:7.2f} ms "
                              f"p50={st['p50_ms']:7.2f} p95={st['p95_ms']:7.2f}")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """``torch.profiler`` trace context: the window's host operations and,
+    whenever a card is present, its kernels and copies, written as a Chrome
+    trace (``chrome://tracing``, Perfetto) to
+    ``logdir/trace_<pid>_<ns>.json``; the path is the yielded profiler's
+    ``trace_path`` once the window closes. The window ends with a
+    synchronize, so every kernel it launched is in the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available()
+    os.makedirs(logdir, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    prof.trace_path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(prof.trace_path)

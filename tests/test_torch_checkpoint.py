@@ -33,10 +33,6 @@ from lili_om_tpu.io import pcd as JP
 from lili_om_tpu.models import fusion as jfus
 from lili_om_tpu.models import odometry as jodo
 from lili_om_tpu.models import pose_graph as jpg
-from lili_om_tpu.models.system import LiliOmSystem as JSystem
-from lili_om_tpu.models.system import LoopClosureConfig as JLC
-from lili_om_tpu.ops.features_livox import LivoxFeatureConfig as JLivox
-from lili_om_tpu.ops.features_spin import SpinFeatureConfig as JS
 from lili_om_tpu_torch.io import checkpoint as TC
 from lili_om_tpu_torch.io import pcd as TP
 from lili_om_tpu_torch.models import fusion as tfus
@@ -45,7 +41,8 @@ from lili_om_tpu_torch.models import pose_graph as tpg
 from lili_om_tpu_torch.sim.lidar import simulate_scan, spinning_pattern
 from lili_om_tpu_torch.sim.trajectory import circle_trajectory, simulate_imu
 from lili_om_tpu_torch.sim.world import make_room_world
-from test_torch_common import CPU, assert_close_dicts, npy, state_dict, tiny_system, tree_dict
+from test_torch_common import (CPU, J_FUS, J_ODO, assert_close_dicts, jax_tiny_system, npy,
+                               state_dict, tiny_system, tree_dict)
 
 R, C, PERIOD = 16, 360, 0.1
 N_SAVE, N_MORE = 6, 2
@@ -53,21 +50,6 @@ TOL = 1e-6
 # build_global_map's variants: every keyframe, every second, a subsample
 # (the same seeded choice), the surf archive
 MAP_ARGS = [{"interval": 1}, {"interval": 2}, {"cap": 300}, {"features_only": True}]
-
-
-# tests/test_pipeline.py's ``tiny_system`` configuration, on the JAX side
-J_ODO = dict(n_recent_frames=4, scan_cap=1024, query_cap=256, map_cap=2048)
-J_FUS = dict(window=3, local_map_width=4, kf_surf_cap=1024, kf_edge_cap=256, map_surf_cap=2048,
-             map_edge_cap=512, use_reflectivity=False, max_num_iter=2, imu_cap=32)
-
-
-def jax_tiny_system():
-    """tests/test_pipeline.py's ``tiny_system``, its loop closure never
-    firing."""
-    return JSystem(
-        odo_cfg=jodo.OdometryConfig(**J_ODO), fusion_cfg=jfus.FusionConfig(**J_FUS),
-        feat_cfg=JS(surf_cap=1024), livox_cfg=JLivox(n_cols=400),
-        lc_cfg=JLC(enabled=True, time_thres=1e9), graph_capacity=32, dtype=jnp.float64)
 
 
 def _outcome(s):

@@ -121,3 +121,47 @@ def tiny_system():
         feat_cfg=SpinFeatureConfig(surf_cap=1024), livox_cfg=LivoxFeatureConfig(n_cols=400),
         lc_cfg=LoopClosureConfig(enabled=True, time_thres=1e9), graph_capacity=32,
         dtype=torch.float64, device=CPU)
+
+
+# tiny_system's configuration, on the JAX side
+J_ODO = dict(n_recent_frames=4, scan_cap=1024, query_cap=256, map_cap=2048)
+J_FUS = dict(window=3, local_map_width=4, kf_surf_cap=1024, kf_edge_cap=256, map_surf_cap=2048,
+             map_edge_cap=512, use_reflectivity=False, max_num_iter=2, imu_cap=32)
+
+
+def jax_tiny_system():
+    """tests/test_pipeline.py's ``tiny_system``, its loop closure never
+    firing (constructing it compiles nothing)."""
+    import jax.numpy as jnp
+
+    from lili_om_tpu.models import fusion as jfus
+    from lili_om_tpu.models import odometry as jodo
+    from lili_om_tpu.models.system import LiliOmSystem as JSystem
+    from lili_om_tpu.models.system import LoopClosureConfig as JLC
+    from lili_om_tpu.ops.features_livox import LivoxFeatureConfig as JLivox
+    from lili_om_tpu.ops.features_spin import SpinFeatureConfig as JS
+
+    return JSystem(
+        odo_cfg=jodo.OdometryConfig(**J_ODO), fusion_cfg=jfus.FusionConfig(**J_FUS),
+        feat_cfg=JS(surf_cap=1024), livox_cfg=JLivox(n_cols=400),
+        lc_cfg=JLC(enabled=True, time_thres=1e9), graph_capacity=32, dtype=jnp.float64)
+
+
+def tiny_run(n_scans, rings=16, cols=360, period=0.1):
+    """``tiny_system`` after ``n_scans`` sweeps of the port's simulator
+    (float64, a circle in the room world, the IMU pushed up front)."""
+    from lili_om_tpu_torch.sim.lidar import simulate_scan, spinning_pattern
+    from lili_om_tpu_torch.sim.trajectory import circle_trajectory, simulate_imu
+    from lili_om_tpu_torch.sim.world import make_room_world
+
+    world = make_room_world(dtype=torch.float64, device=CPU)
+    traj = circle_trajectory(radius=8.0, period=40.0)
+    pattern = spinning_pattern(n_rings=rings, n_cols=cols, dtype=torch.float64, device=CPU)
+    imu = simulate_imu(traj, 0.0, (n_scans + 1) * period, rate=200.0, device=CPU)
+    s = tiny_system()
+    s.push_imu(npy(imu.stamps), npy(imu.accs), npy(imu.gyrs))
+    for k in range(n_scans):
+        sc = simulate_scan(world, traj, k * period, pattern, period=period)
+        s.process_scan(npy(sc.pts).reshape(rings, cols, 3), npy(sc.valid).reshape(rings, cols),
+                       npy(sc.rel_time).reshape(rings, cols), k * period)
+    return s

@@ -216,3 +216,67 @@ def test_singular_system_gives_zero_step():
     assert torch.all(TG.solve_normal(torch.as_tensor(H), torch.as_tensor(b)) == 0)
     _close(JG.solve_normal_lm(jnp.asarray(H), jnp.asarray(b), 1e-4),
            TG.solve_normal_lm(torch.as_tensor(H), torch.as_tensor(b), 1e-4), "float64")
+
+
+@pytest.mark.parametrize("dtype,whiten", [("float64", False), ("float64", True),
+                                          ("float32", False)])
+def test_imu_factor_autodiff(imu_interval, dtype, whiten):
+    """``imu_factor`` (Jacobians by ``torch.func.jacfwd``) against JAX's
+    (``jax.jacfwd``) on the same preintegration, at the analytic test's
+    tolerances; and the port's analytic form against it, with
+    tests/test_imu_factor.py's bounds (the residual to 1e-9 relative; the
+    Jacobians to 2e-4 of their largest entry, as the analytic form treats
+    the residual's normalize as identity and corrects biases to first
+    order)."""
+    sig, si, sj = imu_interval
+    jp = jax.jit(JP.integrate_parallel, static_argnums=0)(JP.ImuNoise(),
+                                                           *[_j(x, dtype) for x in sig])
+    tp = TP.integrate_parallel(TP.ImuNoise(), *[_t(x, dtype) for x in sig])
+    jW = JP.sqrt_info(jp) if whiten else None
+    tW = TP.sqrt_info(tp) if whiten else None
+    jo = jax.jit(JI.imu_factor, static_argnums=1)(
+        jp, JP.ImuNoise(), *[_j(x, dtype) for x in si + sj], W=jW)
+    to = TI.imu_factor(tp, TP.ImuNoise(), *[_t(x, dtype) for x in si + sj], W=tW)
+    for a, b in zip(jo, to):
+        _close(a, b, dtype, 1e3 if whiten else 10.0)
+    if dtype == "float64":
+        ta = TI.imu_factor_analytic(tp, TP.ImuNoise(), *[_t(x, dtype) for x in si + sj], W=tW)
+        np.testing.assert_allclose(npy(ta[0]), npy(to[0]), rtol=1e-9,
+                                   atol=1e-12 * float(np.abs(npy(to[0])).max()))
+        scale = float(np.abs(npy(to[1])).max())
+        for a, b in zip(to[1:], ta[1:]):
+            np.testing.assert_allclose(npy(b), npy(a), atol=2e-4 * scale)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window_k", [1, 4])
+def test_identity_prior(dtype, window_k):
+    """The inert start-up prior: the same arrays, and a zero residual."""
+    jp = JPR.identity_prior(window_k, getattr(jnp, dtype))
+    tp = TPR.identity_prior(window_k, getattr(torch, dtype))
+    for name, a, b in zip(jp._fields, jp, tp):
+        assert npy(b).dtype == np.asarray(a).dtype, name
+        np.testing.assert_array_equal(npy(b), np.asarray(a), err_msg=name)
+    r, J = TPR.marginal_prior_residual(tp, *[tp.t0, tp.q0, tp.v0, tp.ba0, tp.bg0])
+    assert not torch.any(r) and not torch.any(J)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_b", [False, True])
+def test_scatter_block(dtype, with_b):
+    """Blocks added into a dense H (and b) at static slots, twice into one
+    slot: equal to JAX's ``.at[].add``, and the inputs left unchanged."""
+    rng = np.random.default_rng(10)
+    H, b = rng.normal(size=(12, 12)), rng.normal(size=12)
+    blocks = [(rng.normal(size=(3, 3)), rng.normal(size=3), i, j)
+              for i, j in ((0, 0), (1, 2), (1, 2), (3, 1))]
+    jH, jb = _j(H, dtype), _j(b, dtype) if with_b else None
+    tH, tb = _t(H, dtype), _t(b, dtype) if with_b else None
+    for Hij, bi, i, j in blocks:
+        jH, jb = JG.scatter_block(jH, jb, _j(Hij, dtype), _j(bi, dtype), i, j, 3)
+        tH, tb = TG.scatter_block(tH, tb, _t(Hij, dtype), _t(bi, dtype), i, j, 3)
+    _close(jH, tH, dtype)
+    if with_b:
+        _close(jb, tb, dtype)
+    else:
+        assert tb is None

@@ -94,7 +94,8 @@ def test_runtime_modules_import_in_a_spawned_child():
 
 
 def _entry_points():
-    from lili_om_tpu_torch.apps import run_bag, run_dataset
+    from lili_om_tpu_torch.apps import (evaluate_presets, run_bag, run_dataset, run_loop_closure,
+                                        run_pipeline, run_synthetic)
     from lili_om_tpu_torch.frame import Frame, bench_configs, sim_scans
     from lili_om_tpu_torch.models.fusion import fusion_step, init_fusion_state
     from lili_om_tpu_torch.models.odometry import init_state, odometry_step
@@ -126,6 +127,11 @@ def _entry_points():
         "run_dataset record": lambda: run_dataset.main(["record", "missing.lom", "1"]),
         "run_dataset play": lambda: run_dataset.main(["play", "missing.lom"]),
         "run_bag": lambda: run_bag.main(["missing.bag", "--preset", "synthetic"]),
+        "evaluate_presets": lambda: evaluate_presets.main(["--presets", "synthetic",
+                                                           "--frames", "2"]),
+        "run_synthetic": lambda: run_synthetic.main(["2"]),
+        "run_loop_closure": lambda: run_loop_closure.main(["--frames", "2"]),
+        "run_pipeline": lambda: run_pipeline.main(["--frames", "3"]),
     }
 
 

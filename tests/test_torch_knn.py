@@ -291,3 +291,17 @@ def test_cuda_prepared_route_matches_plain(cuda):
         d, i = fn(qt, m, 5, q_mask=qm)
         torch.cuda.synchronize()
         assert torch.equal(d, rd) and torch.equal(i, ri), fn.__name__
+
+
+def test_gather_neighbors_matches_jax():
+    """(P,3) rows picked by a (Q,k) index: exactly JAX's, on the plain kNN's
+    own output."""
+    from lili_om_tpu.ops.knn import gather_neighbors as jax_gather
+
+    rng = np.random.default_rng(12)
+    pts = rng.normal(size=(300, 3))
+    _, idx = K.knn(torch.as_tensor(rng.normal(size=(40, 3))), torch.as_tensor(pts), k=5)
+    got = K.gather_neighbors(torch.as_tensor(pts), idx)
+    assert got.shape == (40, 5, 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_gather(jnp.asarray(pts),
+                                                                     jnp.asarray(idx.numpy()))))

@@ -692,12 +692,9 @@ def test_run_dataset_records_and_plays(tmp_path, capsys, small_presets):
     assert m.shape[1] == 3 and len(m) > 1000 and np.isfinite(m).all()
 
 
-def test_run_bag_plays_a_pointcloud2_bag(tmp_path, capsys, sim_inputs, small_presets):
-    """Six PointCloud2 sweeps without a ring field (rings from the
-    16-line vertical-angle formula), the IMU at 200 Hz, through the
-    ingest split and the overlapped runner."""
-    from lili_om_tpu_torch.apps import run_bag
-
+def _sim_bag(path, sim_inputs):
+    """Six PointCloud2 sweeps without a ring field and the IMU at 200 Hz,
+    written as a ROS1 bag."""
     stamps, accs, gyrs = sim_inputs["imu"]
     msgs = [(0, "/imu/data", "sensor_msgs/Imu", _imu_msg(s, [1.0, 0, 0, 0], g, a))
             for s, a, g in zip(stamps, accs, gyrs) if s < 0.15]
@@ -708,14 +705,52 @@ def test_run_bag_plays_a_pointcloud2_bag(tmp_path, capsys, sim_inputs, small_pre
         msgs += [(0, "/imu/data", "sensor_msgs/Imu", _imu_msg(s, [1.0, 0, 0, 0], g, a))
                  for s, a, g in zip(stamps, accs, gyrs)
                  if 0.15 + k * PERIOD <= s < 0.25 + k * PERIOD]
-    bag, pcd = str(tmp_path / "s.bag"), str(tmp_path / "s.pcd")
-    _write_bag(bag, msgs)
+    _write_bag(path, msgs)
+    return path
+
+
+def test_run_bag_plays_a_pointcloud2_bag(tmp_path, capsys, sim_inputs, small_presets):
+    """Six PointCloud2 sweeps without a ring field (rings from the
+    16-line vertical-angle formula), the IMU at 200 Hz, through the
+    ingest split and the overlapped runner."""
+    from lili_om_tpu_torch.apps import run_bag
+
+    bag, pcd = _sim_bag(str(tmp_path / "s.bag"), sim_inputs), str(tmp_path / "s.pcd")
     assert run_bag.main([bag, "--preset", "synthetic", "--cols", str(C), "--cpu",
                          "--ingest-hosts", "2", "--map", pcd]) == 0
     out = capsys.readouterr().out
     assert out.lstrip().startswith("6 scans,")
     m = TP.read_pcd(pcd)
     assert m.shape[1] == 3 and len(m) > 100 and np.isfinite(m).all()
+
+
+def test_run_bag_live_viz_and_export(tmp_path, capsys, monkeypatch, sim_inputs, small_presets):
+    """``--live-viz`` serves its directory on a free port for the run and
+    ``--export-dir`` writes the TUM trajectory, PCD and PLY map and the
+    overview PNG after it."""
+    import urllib.request
+
+    from lili_om_tpu_torch.apps import run_bag
+    from lili_om_tpu_torch.utils import live_viz
+
+    bag = _sim_bag(str(tmp_path / "s.bag"), sim_inputs)
+    live, out_dir = tmp_path / "live", tmp_path / "export"
+    served = {}
+    real_close = live_viz.LiveViewer.close
+
+    def close(self):  # fetch the page while the server still runs
+        port = self._httpd.server_address[1]
+        served["index"] = urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=10).read()
+        real_close(self)
+
+    monkeypatch.setattr(live_viz.LiveViewer, "close", close)
+    assert run_bag.main([bag, "--preset", "synthetic", "--cols", str(C), "--cpu", "--serial",
+                         "--live-viz", str(live), "--export-dir", str(out_dir)]) == 0
+    out = capsys.readouterr().out
+    assert "live viewer: http://localhost:" in out and b"lili_om_tpu_torch" in served["index"]
+    assert (live / "index.html").exists() and out.count("exported ") == 4
+    for name in ("trajectory_kf.tum", "global_map.pcd", "global_map.ply", "overview.png"):
+        assert (out_dir / name).stat().st_size > 0, name
 
 
 class _RunnerMode(Exception):

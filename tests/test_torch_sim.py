@@ -123,3 +123,47 @@ def test_livox_scan_f64(worlds):
     np.testing.assert_array_equal(np.asarray(js.line), npy(ts.line))
     np.testing.assert_allclose(np.asarray(js.pts), npy(ts.pts), atol=1e-8)
     np.testing.assert_allclose(np.asarray(js.reflectivity), npy(ts.reflectivity), atol=1e-8)
+
+
+TRAJS = {"straight": dict(), "aggressive": dict(), "static": dict(p0=(1.0, -2.0, 0.5))}
+
+
+def _named_trajs(name):
+    kw = TRAJS[name]
+    return getattr(JT, f"{name}_trajectory")(**kw), getattr(TT, f"{name}_trajectory")(**kw)
+
+
+@pytest.mark.parametrize("name", sorted(TRAJS))
+def test_other_trajectories_poses_and_imu(name):
+    """The corridor, aggressive and static trajectories: poses at a few
+    times and the exact IMU samples by autodiff (f64), to 1e-12 as the
+    circle's."""
+    jtr, ttr = _named_trajs(name)
+    for t in (0.0, 0.7, 5.3):
+        for a, b in zip(JT.pose_at(jtr, t), TT.pose_at(ttr, t)):
+            np.testing.assert_allclose(np.asarray(a), npy(b), atol=1e-12, err_msg=f"{name} {t}")
+    ji = JT.simulate_imu(jtr, 5.0, 5.2, rate=200.0)
+    ti = TT.simulate_imu(ttr, 5.0, 5.2, rate=200.0)
+    for field, a, b in zip(ji._fields, ji, ti):
+        np.testing.assert_allclose(np.asarray(a), npy(b), atol=1e-12, err_msg=f"{name} {field}")
+
+
+def test_aggressive_trajectory_has_fast_yaw_bursts():
+    """tests/test_golden_motion.py's check on the port: body rates above
+    1.5 rad/s inside its 6 s window."""
+    ttr = TT.aggressive_trajectory()
+    gyro, _, _ = TT.body_rates(ttr, torch.linspace(5.0, 12.0, 300, dtype=torch.float64))
+    assert float(torch.linalg.norm(gyro, dim=-1).max()) > 1.5
+
+
+def test_corridor_world_and_scan():
+    """The corridor world's arrays are identical; a f64 sweep along the
+    straight trajectory agrees as test_scan_f64's (1e-8 m, same validity)."""
+    jw, tw = JW.make_corridor_world(), TW.make_corridor_world()
+    for field, a, b in zip(jw._fields, jw, tw):
+        np.testing.assert_array_equal(np.asarray(a), npy(b), err_msg=field)
+    jtr, ttr = _named_trajs("straight")
+    js = JL.simulate_scan(jw, jtr, 1.3, JL.spinning_pattern(R, C, dtype=jnp.float64))
+    ts = TL.simulate_scan(tw, ttr, 1.3, TL.spinning_pattern(R, C, dtype=torch.float64))
+    np.testing.assert_array_equal(np.asarray(js.valid), npy(ts.valid))
+    np.testing.assert_allclose(np.asarray(js.pts), npy(ts.pts), atol=1e-8)

@@ -202,3 +202,67 @@ def test_grouped_key_at_int32_max_stays_one_voxel(ordered):
     assert m.tolist() == [True, True] + [False] * 6
     got = sorted(map(tuple, out[:2]))
     np.testing.assert_array_equal(got, sorted([(0.5, 0.5, 0.5), tuple(cell + 0.5)]))
+
+
+def _tiered_inputs(occ, T=1024, D=256, seed=0):
+    """tests/test_ops_core.py's table of ``occ`` valid rows out of T plus D
+    delta rows, with optional primary/second selections."""
+    rng = np.random.default_rng(seed)
+    cells_t = np.zeros((T, 3), np.int32)
+    cells_t[:occ] = rng.integers(0, 30, (occ, 3))
+    valid_t = np.zeros(T, bool)
+    valid_t[:occ] = True
+    sums_t = rng.normal(size=(T, 4)) * valid_t[:, None]
+    cnt_t = (rng.integers(1, 5, T) * valid_t).astype(np.float64)
+    cells_d = rng.integers(0, 30, (D, 3)).astype(np.int32)
+    valid_d = rng.uniform(size=D) < 0.8
+    sums_d = rng.normal(size=(D, 4)) * valid_d[:, None]
+    cnt_d = (rng.integers(1, 3, D) * valid_d).astype(np.float64)
+    psel = rng.uniform(size=T + D) < 0.7
+    ssel = rng.uniform(size=T + D) < 0.5
+    return (np.concatenate([cells_t, cells_d]), np.concatenate([sums_t, sums_d]),
+            np.concatenate([cnt_t, cnt_d]), np.concatenate([valid_t, valid_d]), psel, ssel)
+
+
+# occupancies: the 256 tier taken (0, 50), the 512 tier (300), the full
+# merge (900); "beyond": a valid table row past every tier forces the full
+# merge at low occupancy
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("sel", [False, True])
+@pytest.mark.parametrize("occ", [0, 50, 300, 900, "beyond"])
+def test_merge_voxel_entries_tiered(dtype, sel, occ):
+    """The tiered merge against the port's full merge and against JAX's
+    tiered merge, output slot by slot (cells, counts, masks exactly; sums
+    to the module's tolerance)."""
+    cells, sums, cnt, valid, psel, ssel = _tiered_inputs(50 if occ == "beyond" else occ)
+    if occ == "beyond":
+        valid[700] = True
+        cells[700] = (3, 4, 5)
+        cnt[700] = 2.0
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    args_j = [jnp.asarray(cells), jnp.asarray(sums, jd), jnp.asarray(cnt, jd), jnp.asarray(valid)]
+    args_t = [torch.as_tensor(cells), torch.as_tensor(sums, dtype=td),
+              torch.as_tensor(cnt, dtype=td), torch.as_tensor(valid)]
+    kw_j = dict(second_sel=jnp.asarray(ssel), primary_sel=jnp.asarray(psel)) if sel else {}
+    kw_t = dict(second_sel=torch.as_tensor(ssel), primary_sel=torch.as_tensor(psel)) if sel else {}
+    jo = JV.merge_voxel_entries_tiered(*args_j, 1024, 1024, tiers=(256, 512), **kw_j)
+    to = TV.merge_voxel_entries_tiered(*args_t, 1024, 1024, tiers=(256, 512), **kw_t)
+    full = TV.merge_voxel_entries(*args_t, 1024, **kw_t)
+    if sel:
+        jo, to, full = jo[0] + jo[1], to[0] + to[1], full[0] + full[1]
+    for a, b, c in zip(jo, to, full):
+        _same(a, b, dtype)
+        _same(npy(c), b, dtype)
+
+
+def test_remove_close_points():
+    """tests/test_ops_core.py's case plus an infinite point and a masked
+    one, against JAX's (a boolean mask, exactly)."""
+    pts = np.array([[0.05, 0, 0], [5.0, 0, 0], [np.nan, 0, 0], [0, np.inf, 0], [3, 4, 0],
+                    [0.06, 0.08, 0.0]])
+    mask = np.array([True, True, True, True, False, True])
+    for min_range in (0.1, 3.0):
+        j = np.asarray(JV.remove_close_points(jnp.asarray(pts), jnp.asarray(mask), min_range))
+        t = TV.remove_close_points(torch.as_tensor(pts), torch.as_tensor(mask), min_range)
+        np.testing.assert_array_equal(t.numpy(), j)
+    assert t.tolist() == [False, True, False, False, False, False]
