@@ -7,7 +7,9 @@ Phases, each printing its own line; any failed check exits non-zero:
 
 1. device: the card's name and power limit;
 2. build: every CUDA kernel of the port, from ``lili_om_tpu_torch/csrc/``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source), and beside them the native host runtime
+   ``csrc/lili_runtime.cc`` by the host C++ compiler, all started together;
+   the runtime library's path and compiler are printed and it is loaded;
 3. main path: ``Frame`` steps (spin features → scan-to-map odometry →
    sliding-window fusion) at the full ``fr_iosb_rot`` width on simulated
    64×1800 scans, with every kernel's launch count set to 0 just before and
@@ -62,21 +64,27 @@ Phases, each printing its own line; any failed check exits non-zero:
    equal to the plain version on a CPU copy in float32 and float64, its
    times beside the plain version's, ``index_add_``'s and the bound;
 9. runtime: the first 70 scans of the system lap written to a ``.lom``
-   by the port's ``DatasetWriter`` (in a temporary directory, removed at
-   the end), the pruned switch unset; read back with ``read_dataset`` into
-   direct ``process_scan`` calls with a checkpoint after 35 scans; the same
-   log through ``ShardedIngest`` (2 spawned decode processes) into an
-   overlapped ``PipelineRunner`` with the loop thread off, equal to the
-   direct run (bit for bit, or within ``TRAJ_TOL_*`` with the gap
-   printed); the checkpoint loaded into a fresh system and run on, equal to
-   the direct run's end; the pipeline again with the loop thread on (1 s):
-   every scan processed, no worker exception, at least one loop closed by
-   the loop thread, the keyframe RMSE within ``KF_RMSE_TOL_M``, the
-   exported map's median distance to the world's surfaces within
-   ``SUBMAP_SURF_TOL_M``; every run's keyframes archived surf features;
-   ``record_synthetic`` on the card. Each run launches B1 and B4, no
-   B3 and no plain version; it prints the scan rates serial and
-   overlapped, the ``backend`` p50 and the decode time;
+   by the port's ``DatasetWriter`` through the native log writer (in a
+   temporary directory, removed at the end), the same records through the
+   plain ``runtime/log.py`` writer with the same bytes, the pruned switch
+   unset; read back with ``read_dataset`` (the native reader) into direct
+   ``process_scan`` calls with a checkpoint after 35 scans; the same log
+   through ``ShardedIngest`` (2 spawned decode processes) into a serial
+   ``PipelineRunner`` over the first 35 scans (equal to the direct run's
+   checkpoint there) and an overlapped one over all 70 with the loop thread
+   off, each with the native sequencer and IMU ring (their types checked,
+   every IMU sample counted through the ring), each equal to the direct
+   run (bit for bit, or within ``TRAJ_TOL_*`` with the gap printed); the checkpoint
+   loaded into a fresh system and run on, equal to the direct run's end;
+   the pipeline again with the loop thread on (1 s): every scan processed,
+   no worker exception, at least one loop closed by the loop thread, the
+   keyframe RMSE within ``KF_RMSE_TOL_M``, the exported map (the native
+   PCD writer, the same bytes as ``write_pcd``) at a median distance to
+   the world's surfaces within ``SUBMAP_SURF_TOL_M``; every run's
+   keyframes archived surf features; ``record_synthetic`` on the card.
+   Each run launches B1 and B4, no B3 and no plain version; it prints the
+   scan rates serial and overlapped, the ``backend`` p50 and the decode
+   time;
 10. multichip: ``LiliOmSystem(mesh=…)`` at the whole ``fr_iosb_rot``
    preset on the runtime phase's 70 lap scans, closures every 10 scans,
    the pruned switch unset. (a) NCCL at world size 1: equal to the
@@ -92,7 +100,18 @@ Phases, each printing its own line; any failed check exits non-zero:
    mesh sites: world 1's and rank 0's inputs from scan 40 on, rank 1's
    first calls (its map shards empty: zero walk bounds), and each rank's
    ``sharded_knn`` block. Per-scan times, the ``backend`` p50 and the
-   fusion's per-keyframe ``all_gather`` (bytes, CUDA-event time) of each run;
+   fusion's per-keyframe ``all_gather`` (bytes, CUDA-event time) of each
+   run. (c) the query-sharded fusion (``parallel/dist_fusion.py``): the
+   keyframe inputs of the single-card incremental run (``FusionSpy``)
+   replayed from its first state, without the closures' ring corrections,
+   through ``fusion_step`` on the card, through ``make_distributed_fusion``
+   over NCCL at world size 1 and on the two gloo ranks of (b): the outputs
+   and states equal (bit for bit, or within ``TRAJ_TOL_*`` with the gap
+   printed), B1 with its map preparation at both fusion sites and B4 on
+   every rank, no B3 and no plain version; B1 against its plain version at
+   each rank's block (its first call and its first from keyframe 10 on,
+   each block's valid queries printed); the step time and the
+   ``all_gather`` (bytes, CUDA-event time) per keyframe;
 11. with ``--profile``, a ``torch.profiler`` window over a few main-path
    frames (device busy share, kernels by device time), and in phase 9 a
    profiler window over one more direct and one more pipeline run (device
@@ -129,6 +148,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import hashlib
 import importlib.util
 import json
 import math
@@ -152,15 +172,20 @@ from lili_om_tpu_torch.frame import Frame, bench_configs, sim_scans
 from lili_om_tpu_torch.io.checkpoint import load_system, save_system
 from lili_om_tpu_torch.io.dataset import (DatasetWriter, ImuRecord, ScanRecord, decode_spin,
                                           read_dataset, record_synthetic)
-from lili_om_tpu_torch.io.pcd import read_pcd
+from lili_om_tpu_torch.io.pcd import read_pcd, write_pcd
 from lili_om_tpu_torch.models import system as system_mod
+from lili_om_tpu_torch.models.fusion import fusion_step
 from lili_om_tpu_torch.models.system import LiliOmSystem
 from lili_om_tpu_torch.ops import knn as K
 from lili_om_tpu_torch.ops import segred as SG
 from lili_om_tpu_torch.ops import voxel as voxel_mod
 from lili_om_tpu_torch.ops.hashgrid import build_grid, hashgrid_knn, neighbour_buckets
+from lili_om_tpu_torch.parallel import dist_fusion as dist_fusion_mod
 from lili_om_tpu_torch.parallel import map_fusion as map_fusion_mod
+from lili_om_tpu_torch.parallel.dist_fusion import make_distributed_fusion
 from lili_om_tpu_torch.parallel.sharded import make_mesh, sharded_knn
+from lili_om_tpu_torch.runtime import log as plain_log
+from lili_om_tpu_torch.runtime import native
 from lili_om_tpu_torch.runtime.ingest import ShardedIngest
 from lili_om_tpu_torch.runtime.pipeline import PipelineRunner
 from lili_om_tpu_torch.sim.lidar import livox_pattern, simulate_scan, spinning_pattern
@@ -250,6 +275,9 @@ RT_SCANS, RT_SAVE_AT, RT_INGEST_HOSTS, RT_LOOP_PERIOD_S = 70, 35, 2, 1.0
 # second rank's block all invalid
 MC_SCANS, MC_RANKS, MC_SHARD_TOL_M, MC_RECORD_FROM = RT_SCANS, 2, 0.05, SYS_RECORD_FROM
 MC_KNN_Q, MC_KNN_P = 4096, 65536
+# (c): B1's inputs on each rank at its first call and at its first from
+# this keyframe on (the maps grown)
+MC_DIST_RECORD_FROM = 10
 MC_JOIN_S = 900
 # evaluate phase: the JAX golden-loop harness (examples/evaluate_presets.py)
 # over its default presets, EV_FRAMES frames each, float32, each preset's
@@ -278,6 +306,22 @@ DEV = "cuda"
 
 class CheckFailed(Exception):
     pass
+
+
+# seconds spent in the kernel-against-plain checks (the compare_* functions),
+# to read beside each phase's wall time
+CHECK_S = [0.0]
+
+
+def timed_check(fn):
+    @functools.wraps(fn)
+    def wrap(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            CHECK_S[0] += time.perf_counter() - t0
+    return wrap
 
 
 def check(ok: bool, what: str):
@@ -445,15 +489,29 @@ class IcpSpy(Patch):
 
 class FusionSpy(Patch):
     """Wraps the system's ``fusion_step``: keeps the ``rebuild`` flag of
-    every keyframe under the scan index ``scan`` that the caller sets."""
+    every keyframe under the scan index ``scan`` that the caller sets. With
+    ``record``, also host copies of each keyframe's inputs (the clouds and
+    the IMU interval, with the warm-up flag) and of the first call's state,
+    config and IMU noise: what a replay of the backend needs."""
 
-    def __init__(self):
+    def __init__(self, record: bool = False):
         super().__init__(system_mod, "fusion_step")
         self.scan, self.rebuild = -1, []
+        self.record, self.inputs, self.first = record, [], None
 
     def __call__(self, *args, rebuild=False, **kw):
         self.rebuild.append((self.scan, rebuild))
+        if self.record:
+            if self.first is None:
+                self.first = (tree_to(args[0], "cpu"), args[10], args[11])
+            self.inputs.append((tuple(a.cpu() for a in args[1:10]), kw.get("warmup", False)))
         return self.orig(*args, rebuild=rebuild, **kw)
+
+
+def tree_to(nt, dev):
+    """A (nested) NamedTuple of tensors moved to ``dev``."""
+    return type(nt)(*(tree_to(v, dev) if hasattr(v, "_fields") else
+                      v.to(dev) if isinstance(v, torch.Tensor) else v for v in nt))
 
 
 class SegRecorder(Patch):
@@ -516,6 +574,7 @@ def knn_map_points(kmap):
     return kmap.pts4[:, :3].contiguous(), kmap.pts4[:, 3] == 0.0
 
 
+@timed_check
 def compare_kernel(name, site, inputs, launches, k=5):
     """B1/B2 at one call site against the plain version on the same inputs
     (equal bit for bit), through the per-call route (the map prepared in the
@@ -593,6 +652,7 @@ def compare_kernel(name, site, inputs, launches, k=5):
             "kernel_device_ms": dev_ms, "shape": [Q, P], "valid": [nq, np_]}
 
 
+@timed_check
 def compare_knn_map(what, pts, mask, launches):
     """B1/B2's preparation kernel on one map against ``knn_map_plain``
     (equal bit for bit): its times as called (allocation included), the
@@ -621,16 +681,19 @@ def compare_knn_map(what, pts, mask, launches):
             "library_ms": None, "shape": [P]}
 
 
-def compare_sites(phase, inputs, counts, names):
-    """``compare_kernel`` at every recorded site of one path, then the
-    preparation kernel once per map size (its launches are counted per
-    size). ``inputs``: {(wrapper name, Q, P, k): recorded inputs}."""
+def compare_sites(phase, inputs, counts, names, with_maps: bool = True):
+    """``compare_kernel`` at every recorded site of one path, then (with
+    ``with_maps``) the preparation kernel once per map size (its launches
+    are counted per size). ``inputs``: {(wrapper name, Q, P, k): recorded
+    inputs}."""
     rows, maps = [], {}
     for (w, q, p, k), v in sorted(inputs.items()):
         site = f"{phase}{names.get((q, p), 'site')}_k{k}_{q}x{p}"
         rows.append(compare_kernel(w, site, v, counts.get((w, q, p, k), 0), k=k))
         pts = v[1]
-        maps.setdefault(p, knn_map_points(pts) if isinstance(pts, K.KnnMap) else (pts, v[2]))
+        if with_maps:
+            maps.setdefault(p, knn_map_points(pts) if isinstance(pts, K.KnnMap)
+                            else (pts, v[2]))
     for p, (pts, mask) in sorted(maps.items()):
         rows.append(compare_knn_map(f"{phase}{p}", pts, mask, counts.get(("knn_map", 0, p, 0), 0)))
     return rows
@@ -1049,10 +1112,28 @@ def counted(run):
     return out, counts, seg_counts, p1.n + p2.n + p3.n
 
 
-def write_lap_log(path, scans, imu):
-    """The lap as a ``.lom`` through the port's ``DatasetWriter``: the IMU
-    first, then each sweep's returns (xyz, time in the sweep, ring as the
-    line; reflectivity 0, which the spin path does not read).
+class PlainDatasetWriter(DatasetWriter):
+    """``DatasetWriter`` over the plain ``runtime/log.py`` writer, the
+    native writer's plain version: the same records, to compare bytes."""
+
+    def __init__(self, path: str):
+        self._w = plain_log.LogWriter(path)
+
+
+def file_digest(path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while chunk := f.read(1 << 24):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def write_lap_log(path, scans, imu, plain_path=None):
+    """The lap as a ``.lom`` through the port's ``DatasetWriter`` (the
+    native log writer): the IMU first, then each sweep's returns (xyz, time
+    in the sweep, ring as the line; reflectivity 0, which the spin path does
+    not read). With ``plain_path``, the same records also through
+    :class:`PlainDatasetWriter` there.
 
     ``organize_scan`` (the JAX format's binning, kept for parity) puts a
     return in column ``int(rel_time * n_cols)`` of float32 values. The
@@ -1063,9 +1144,10 @@ def write_lap_log(path, scans, imu):
     rounds low is written a few float32 ulps later (at most 8, < 5e-8 s of
     the sweep), and every return comes back in its own column. Returns
     how many returns were moved and by at most how many ulps."""
-    w = DatasetWriter(path)
+    writers = [DatasetWriter(path)] + ([PlainDatasetWriter(plain_path)] if plain_path else [])
     for s, a, g in zip(*(x.cpu().numpy() for x in (imu.stamps, imu.accs, imu.gyrs))):
-        w.write_imu(ImuRecord(float(s), a.astype(np.float32), g.astype(np.float32)))
+        for w in writers:
+            w.write_imu(ImuRecord(float(s), a.astype(np.float32), g.astype(np.float32)))
     ring = np.broadcast_to(np.arange(SYS_RINGS, dtype=np.int32)[:, None], (SYS_RINGS, SYS_COLS))
     col = np.arange(SYS_COLS)[None, :]
     moved, ulps = 0, 0
@@ -1080,9 +1162,12 @@ def write_lap_log(path, scans, imu):
             t, ulps = np.where(low, np.nextafter(t, np.float32(1)), t), max(ulps, step + 1)
         check(bool(((t * SYS_COLS).astype(np.int64) == col)[v].all()),
               f"runtime: scan {k}'s times do not bin into their own columns")
-        w.write_scan(ScanRecord(k * 0.1, img.cpu().numpy()[v].astype(np.float32), t[v],
-                                np.zeros(int(v.sum()), np.float32), ring[v]))
-    w.close()
+        rec = ScanRecord(k * 0.1, img.cpu().numpy()[v].astype(np.float32), t[v],
+                         np.zeros(int(v.sum()), np.float32), ring[v])
+        for w in writers:
+            w.write_scan(rec)
+    for w in writers:
+        w.close()
     return moved, ulps
 
 
@@ -1174,21 +1259,33 @@ def profile_runtime(label: str, run, wall_s: float):
 def runtime_phase(tmp: str, profile: bool = False):
     """The runtime entry points on the first ``RT_SCANS`` scans of the golden
     lap at the full ``fr_iosb_rot`` width, the pruned switch unset: the lap
-    into a ``.lom``; a direct run from ``read_dataset`` (a checkpoint after
+    into a ``.lom`` (native writer; the plain writer's copy compared byte
+    for byte); a direct run from ``read_dataset`` (a checkpoint after
     ``RT_SAVE_AT`` scans); the same log through ``ShardedIngest`` (spawned
-    decode processes) into an overlapped ``PipelineRunner`` with the loop
-    thread off; the checkpoint resumed in a fresh system; the pipeline again
-    with the loop thread on, and its map exported and read back. Each run
-    with the launch counts set to 0 just before and read just after. With
-    ``profile``, one more direct and one more pipeline run under the
-    profiler."""
+    decode processes) into a serial ``PipelineRunner`` over the first
+    ``RT_SAVE_AT`` scans and an overlapped one over all, the loop thread off
+    (the native sequencer and IMU ring); the
+    checkpoint resumed in a fresh system; the pipeline again with the loop
+    thread on, and its map exported (native PCD writer, compared with
+    ``write_pcd``'s bytes) and read back. Each run with the launch counts
+    set to 0 just before and read just after. With ``profile``, one more
+    direct and one more pipeline run under the profiler."""
     cfg = system_config()
     lc = dataclasses.replace(cfg.loop_closure, time_thres=SYS_LAP_S / 3.0)
     t0 = time.perf_counter()
     scans, imu, traj, _, _ = sim_lap(cfg, RT_SCANS)
     log, ckpt = os.path.join(tmp, "lap.lom"), os.path.join(tmp, "ckpt")
-    moved, ulps = write_lap_log(log, scans, imu)
+    plain_copy = os.path.join(tmp, "lap_plain.lom")
+    t1 = time.perf_counter()
+    moved, ulps = write_lap_log(log, scans, imu, plain_path=plain_copy)
+    write_s = time.perf_counter() - t1
     del scans
+    digests = [file_digest(log), file_digest(plain_copy)]
+    print(f"[runtime] the lap's .lom by the native writer and by runtime/log.py's: "
+          f"{os.path.getsize(log)} / {os.path.getsize(plain_copy)} bytes, sha256 "
+          f"{digests[0][:16]} / {digests[1][:16]} ({write_s:.2f} s for both)")
+    check(digests[0] == digests[1], "runtime: the native and the plain log writers differ")
+    os.remove(plain_copy)
     print(f"[runtime] cuts: the first {RT_SCANS} scans of the system lap "
           f"({SYS_RINGS}x{SYS_COLS}, "
           f"{os.path.getsize(log) / 2 ** 20:.1f} MiB of log; {moved} returns' times moved by "
@@ -1223,24 +1320,41 @@ def runtime_phase(tmp: str, profile: bool = False):
         sync()
         return s, time.perf_counter() - t1 - save_s, dec_ms, s.metrics.report()
 
-    def pipelined(loop_period):
+    def pipelined(loop_period, overlap=True, n_scans=RT_SCANS):
         s = new_system()
-        runner = PipelineRunner(s, overlap=True, drop_when_full=False,
+        runner = PipelineRunner(s, overlap=overlap, drop_when_full=False,
                                 loop_period_s=loop_period, scan_period=0.1)
+        check(isinstance(runner._seq, native.Sequencer)
+              and isinstance(runner._imu_ring, native.Ring),
+              f"runtime: the runner's sequencer {type(runner._seq).__name__} and IMU ring "
+              f"{type(runner._imu_ring).__name__} are not the native ones")
         runner.start()
         ingest = ShardedIngest(runner, decode, n_hosts=RT_INGEST_HOSTS, processes=True)
         t1 = time.perf_counter()
+        runner.n_imu_fed = fed = 0
         try:
             for r in read_dataset(log):
                 if isinstance(r, ImuRecord):
                     runner.feed_imu(np.array([r.stamp]), r.acc[None], r.gyr[None])
-                else:
+                    runner.n_imu_fed += 1
+                elif fed < n_scans:
                     ingest.feed_raw(r, r.stamp)
+                    fed += 1
             ingest.close()
         finally:
             runner.stop(drain=True)
         sync()
         return s, runner, time.perf_counter() - t1, s.metrics.report()
+
+    def check_native_runner(what, runner):
+        print(f"[runtime] {what}: sequencer {type(runner._seq).__module__}."
+              f"{type(runner._seq).__name__}, IMU ring {type(runner._imu_ring).__name__}; "
+              f"{runner.n_imu_fed} IMU samples fed, {runner.n_imu_ring} through the ring, "
+              f"{runner.n_imu_direct} pushed directly (ring full)")
+        check(runner.n_imu_ring > 0
+              and runner.n_imu_ring + runner.n_imu_direct == runner.n_imu_fed,
+              f"runtime: {what}'s IMU ring carried {runner.n_imu_ring} of "
+              f"{runner.n_imu_fed} samples")
 
     def resumed():
         s = new_system()
@@ -1266,8 +1380,23 @@ def runtime_phase(tmp: str, profile: bool = False):
     check(ref.n_frames == RT_SCANS, f"runtime: the direct run took {ref.n_frames} scans")
     check_counts("runtime", "direct run", *c)
     check_runtime_features("direct run", ref)
+    # the serial runner (run_bag's mode on the card) over the first
+    # RT_SAVE_AT scans, against the direct run's checkpoint there
+    (ser, ser_runner, ser_s, ser_rep), *c = counted(
+        lambda: pipelined(1e9, overlap=False, n_scans=RT_SAVE_AT))
+    check_counts("runtime", "serial pipeline run", *c)
+    check_native_runner("serial pipeline run", ser_runner)
+    check(ser_runner.n_processed == RT_SAVE_AT and ser_runner.n_dropped == 0,
+          f"runtime: the serial pipeline took {ser_runner.n_processed} scans, dropped "
+          f"{ser_runner.n_dropped}")
+    at_save = new_system()
+    load_system(ckpt, at_save)
+    check_gap(f"serial pipeline run vs direct run at its checkpoint ({RT_SAVE_AT} scans)",
+              run_gap(ser, at_save))
+    del ser, at_save
     (pipe, runner, pipe_s, pipe_rep), *c = counted(lambda: pipelined(1e9))
     check_counts("runtime", "pipeline run", *c)
+    check_native_runner("pipeline run", runner)
     check(runner.n_processed == RT_SCANS and runner.n_dropped == 0,
           f"runtime: the pipeline took {runner.n_processed} scans, dropped {runner.n_dropped}")
     check_gap("pipeline run vs direct run", run_gap(pipe, ref))
@@ -1283,8 +1412,15 @@ def runtime_phase(tmp: str, profile: bool = False):
     t0w, q0w = pose_at(traj, 0.0, device=DEV)
     kf_err = keyframe_errors(lcs, traj, t0w, q0w)
     rmse = float(torch.sqrt(torch.mean(kf_err ** 2)))
-    pcd = os.path.join(tmp, "map.pcd")
+    pcd, plain_pcd = os.path.join(tmp, "map.pcd"), os.path.join(tmp, "map_plain.pcd")
     n_map = lcs.export_map(pcd)
+    write_pcd(plain_pcd, lcs.build_global_map())
+    with open(pcd, "rb") as f, open(plain_pcd, "rb") as g:
+        pcd_bytes, plain_bytes = f.read(), g.read()
+    same = pcd_bytes == plain_bytes
+    print(f"[runtime] exported map: {len(pcd_bytes)} bytes by the native writer, "
+          f"{len(plain_bytes)} by write_pcd, {'equal' if same else 'DIFFERENT'}")
+    check(same, "runtime: the native PCD differs from write_pcd's")
     pts = torch.as_tensor(read_pcd(pcd), dtype=torch.float64, device=DEV)
     check(pts.shape == (n_map, 3) and n_map > 0, f"runtime: the PCD holds {tuple(pts.shape)}")
     dist = torch.sort(surface_distance(make_room_world(device=DEV),
@@ -1292,8 +1428,12 @@ def runtime_phase(tmp: str, profile: bool = False):
     map_p50 = float(dist[len(dist) // 2])
     # each report read when its run ended: scans/s from the first scan's
     # start to that run's end
-    rep = {"direct": direct_rep, "pipeline": pipe_rep, "closure": lc_rep}
+    rep = {"direct": direct_rep, "serial_pipeline": ser_rep, "pipeline": pipe_rep,
+           "closure": lc_rep}
     facts = {"direct_scans_per_s": RT_SCANS / direct_s, "pipeline_scans_per_s": RT_SCANS / pipe_s,
+             "serial_pipeline_scans_per_s": RT_SAVE_AT / ser_s,
+             "imu_ring": {"fed": runner.n_imu_fed, "ring": runner.n_imu_ring,
+                          "direct": runner.n_imu_direct},
              "closure_run_scans_per_s": RT_SCANS / lc_s,
              "frontend_scans_per_s": {k: v["_throughput"]["scans_per_sec"]
                                       for k, v in rep.items()},
@@ -1305,10 +1445,13 @@ def runtime_phase(tmp: str, profile: bool = False):
     fr = facts["frontend_scans_per_s"]
     print(f"[runtime] scans/s over the whole replay (log reading and decoding included, "
           f"the decode pool's start too): serial direct {facts['direct_scans_per_s']:.3f}; "
+          f"serial pipeline ({RT_SAVE_AT} scans) {facts['serial_pipeline_scans_per_s']:.3f}; "
           f"overlapped pipeline {facts['pipeline_scans_per_s']:.3f}; with the loop thread "
           f"{facts['closure_run_scans_per_s']:.3f}. From the first scan to the run's end: "
-          f"{fr['direct']:.3f} / {fr['pipeline']:.3f} / {fr['closure']:.3f}")
+          f"{fr['direct']:.3f} / {fr['serial_pipeline']:.3f} / {fr['pipeline']:.3f} / "
+          f"{fr['closure']:.3f}")
     print(f"[runtime] backend p50 ms: direct {facts['backend_p50_ms']['direct']:.3f}, "
+          f"serial pipeline {facts['backend_p50_ms']['serial_pipeline']:.3f}, "
           f"pipeline {facts['backend_p50_ms']['pipeline']:.3f}, closure run "
           f"{facts['backend_p50_ms']['closure']:.3f}; odometry p50 ms "
           f"{facts['odometry_p50_ms']['direct']:.3f} / {facts['odometry_p50_ms']['pipeline']:.3f} / "
@@ -1333,6 +1476,7 @@ def runtime_phase(tmp: str, profile: bool = False):
     return facts
 
 
+@timed_check
 def compare_segred(phase, key, inputs, launches):
     """B4 at one call site: its ids non-decreasing; two launches bit-identical;
     equal to the plain version on a CPU copy, in float32 and in float64;
@@ -1392,6 +1536,7 @@ def map_points(pmap):
     return pts.contiguous(), mask
 
 
+@timed_check
 def compare_pruned(site, inputs, k, launches):
     """B3 against the plain version and against B1 on the same inputs (all
     equal bit for bit), through the per-call route (map and query order
@@ -1481,6 +1626,7 @@ def compare_pruned(site, inputs, k, launches):
             "pairs_scanned": pairs, "shape": [Q, P], "valid": [nq, np_]}
 
 
+@timed_check
 def compare_pruned_map(what, pts, mask, launches, scatter_launches=None):
     """B3's map kernels on one cloud: the Morton keys kernel, and for a map
     (``scatter_launches`` given) the whole preparation with its scatter
@@ -1588,12 +1734,13 @@ def profile_frames(frame: Frame, scans, wall_ms: float):
 
 
 class GatherSpy(Patch):
-    """Wraps the map-sharded fusion's ``all_gather_cat`` (one call per
-    keyframe): the bytes this rank sends, and each call's time by CUDA
-    events and by the host clock (the card synchronized before and after)."""
+    """Wraps the ``all_gather_cat`` of a sharded fusion ``module`` (the
+    map-sharded one by default; one call per keyframe): the bytes this rank
+    sends, and each call's time by CUDA events and by the host clock (the
+    card synchronized before and after)."""
 
-    def __init__(self):
-        super().__init__(map_fusion_mod, "all_gather_cat")
+    def __init__(self, module=map_fusion_mod):
+        super().__init__(module, "all_gather_cat")
         self.bytes, self.event_ms, self.host_ms = [], [], []
 
     def __call__(self, mesh, x, dim=0):
@@ -1676,11 +1823,67 @@ def mesh_lap(mesh, scans, imu, cfg, lc, record: bool = True):
     return facts
 
 
+def dist_steps(mesh, rec):
+    """The query-sharded step for each warm-up flag, from a replay record's
+    config and IMU noise."""
+    _, fcfg, noise = rec["first"]
+    steps = {w: make_distributed_fusion(mesh, fcfg, noise, warmup=w)[0] for w in (True, False)}
+    return steps.__getitem__
+
+
+def single_steps(rec):
+    """``fusion_step`` on the card for each warm-up flag."""
+    _, fcfg, noise = rec["first"]
+    return lambda w: functools.partial(fusion_step, cfg=fcfg, noise=noise, warmup=w, device=DEV)
+
+
+def fusion_replay(step_for, rec, record: bool = False):
+    """The recorded keyframes (``FusionSpy(record=True)``) through
+    ``step_for(warmup)`` from the recorded first state, without the
+    closures' ring corrections and with the pruned switch unset, every
+    launch count set to 0 just before and read just after, the plain
+    versions' calls counted, each step synchronized and timed. With
+    ``record``, B1's inputs at its first call of each site and at its first
+    from keyframe ``MC_DIST_RECORD_FROM`` on are copied, and B4's at its
+    first call of each site from that keyframe on. Returns the run's facts
+    (host copies)."""
+    state0, _, _ = rec["first"]
+    st, outs, ms = tree_to(state0, DEV), [], []
+    with (Recorder("knn_counted_cuda", armed=record) as first,
+          Recorder("knn_counted_cuda", armed=False) as grown,
+          SegRecorder(armed=False) as seg, GatherSpy(dist_fusion_mod) as gather,
+          PlainSpy(K, "knn") as p1, PlainSpy(K, "knn_map_plain") as p2,
+          PlainSpy(SG, "segment_sum_sorted_plain") as p3):
+        sync()
+        reset_counts()
+        for k, (args, warm) in enumerate(rec["inputs"]):
+            grown.armed = seg.armed = record and k >= MC_DIST_RECORD_FROM
+            args = [a.to(DEV) for a in args]
+            t1 = time.perf_counter()
+            st, o = step_for(warm)(st, *args)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t1))
+            outs.append(tuple(x.cpu() for x in (o.t_latest, o.q_latest, o.n_surf_corr,
+                                                 o.n_edge_corr)))
+        sync()
+        counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
+    return {"state": tree_to(st, "cpu"), "outs": outs, "ms": ms, "counts": counts,
+            "seg_counts": seg_counts, "plain_calls": p1.n + p2.n + p3.n,
+            "gather": (gather.bytes, gather.event_ms, gather.host_ms),
+            "first": host_tree({k: v for k, v in first.seen.items()
+                                if not isinstance(v[1], K.KnnMap)}),
+            "grown": host_tree({k: v for k, v in grown.seen.items()
+                                if not isinstance(v[1], K.KnnMap)}),
+            "seg": host_tree(seg.seen)}
+
+
 def multichip_rank(rank: int, n: int, tmp: str):
     """One rank of the multichip phase's gloo world on ``cuda:0``: the lap
     through ``mesh_lap``, then ``sharded_knn`` on the check's map (B1 on this
     rank's block, its input recorded, the counts set to 0 just before and
-    read just after); its facts to ``tmp/rank{rank}.pt``."""
+    read just after), then (c) the recorded keyframes through the
+    query-sharded fusion (``fusion_replay``); its facts to
+    ``tmp/rank{rank}.pt``."""
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/gloo_rendezvous",
                             world_size=n, rank=rank)
@@ -1699,6 +1902,8 @@ def multichip_rank(rank: int, n: int, tmp: str):
             facts["knn"] = (d.cpu(), i.cpu(), dict(K.LAUNCHES),
                             {k: tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in v)
                              for k, v in rec.seen.items()})
+        frec = data["fusion_rec"]
+        facts["dist_fusion"] = fusion_replay(dist_steps(mesh, frec), frec, record=True)
         torch.save(facts, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -1772,6 +1977,57 @@ def mesh_rows(phase, f, knn_sites, seg_sites, snapshot):
     return rows
 
 
+def replay_gap(a, b):
+    """How far replay ``a`` lies from ``b``: (every output and final state
+    field bit-equal, largest ``t_latest`` gap in m, largest ``q_latest`` gap
+    in rad, final window gap in m, largest correspondence-count gap)."""
+    check(len(a["outs"]) == len(b["outs"]), "multichip (c): replays of different lengths")
+    equal = all(torch.equal(x, y) for oa, ob in zip(a["outs"], b["outs"])
+                for x, y in zip(oa, ob))
+    fa, fb = fusion_fields(a["state"]), fusion_fields(b["state"])
+    equal = equal and all(torch.equal(fa[k], fb[k]) for k in fa)
+    t_gap = max(float(torch.linalg.norm(oa[0] - ob[0])) for oa, ob in zip(a["outs"], b["outs"]))
+    r_gap = max(float(2.0 * torch.linalg.norm(quat_mul(quat_conj(oa[1]), ob[1])[1:]))
+                for oa, ob in zip(a["outs"], b["outs"]))
+    win = float((a["state"].t - b["state"].t).abs().max())
+    corr = max(abs(int(x) - int(y)) for oa, ob in zip(a["outs"], b["outs"])
+               for x, y in zip(oa[2:], ob[2:]))
+    return equal, t_gap, r_gap, win, corr
+
+
+def check_replay(label, f, ref, sites, n_solved):
+    """One replay of (c): its launches (B1 at both fusion sites on every
+    solved keyframe, each with its map preparation, B4, no B3 and no plain
+    version), its per-keyframe step time and gather, and its gap to the
+    single-card ``fusion_step`` replay ``ref``."""
+    ms = sorted(f["ms"])
+    b, ev, host = f["gather"]
+    print(f"[multichip] (c) {label}: {len(f['outs'])} keyframes ({n_solved} solved); step ms "
+          f"per keyframe median {ms[len(ms) // 2]:.3f} min {ms[0]:.3f} max {ms[-1]:.3f}; "
+          f"all_gather per keyframe: {b[0] if b else 0} bytes sent by this rank, {len(b)} "
+          f"calls, median {np.median(ev) if ev else float('nan'):.4f} ms by CUDA events "
+          f"({np.median(host) if host else float('nan'):.4f} ms host, synchronized); launches "
+          f"{ {f'{w}:{q}x{p}:k{k}': c for (w, q, p, k), c in sorted(f['counts'].items())} } "
+          f"B4 {sum(f['seg_counts'].values())}; plain calls {f['plain_calls']}")
+    for (q, p), name in sites.items():
+        c = f["counts"].get(("knn_counted", q, p, 5), 0)
+        check(c >= n_solved, f"multichip (c) {label}: B1 launched {c} times at {name} {q}x{p}")
+        check(f["counts"].get(("knn_map", 0, p, 0), 0) >= c,
+              f"multichip (c) {label}: fewer map preparations than searches at {name}")
+    check(sum(f["seg_counts"].values()) > 0, f"multichip (c) {label}: B4 did not launch")
+    check(not any(w in ("knn_pruned", "knn_dense") for w, *_ in f["counts"]),
+          f"multichip (c) {label}: B2 or B3 launched")
+    check(f["plain_calls"] == 0, f"multichip (c) {label}: a plain version ran")
+    if ref is None:
+        return
+    equal, t_gap, r_gap, win, corr = replay_gap(f, ref)
+    print(f"[multichip] (c) {label} vs the single-card fusion_step replay: "
+          f"{'bit-equal' if equal else 'NOT bit-equal'} (t_latest gap {t_gap:.3e} m, q_latest "
+          f"{r_gap:.3e} rad, final window {win:.3e} m, correspondence counts {corr})")
+    check(equal or (max(t_gap, win) < TRAJ_TOL_M and r_gap < TRAJ_TOL_RAD),
+          f"multichip (c): {label} differs from fusion_step by {t_gap:.3e} m / {r_gap:.3e} rad")
+
+
 def multichip_phase(tmp: str):
     """The multi-device path at the whole ``fr_iosb_rot`` preset on the
     first ``MC_SCANS`` scans of the system lap, closures every ``LC_EVERY``
@@ -1782,8 +2038,11 @@ def multichip_phase(tmp: str):
     the card, spawned: each rank's keyframes within ``MC_SHARD_TOL_M`` of
     (a), equal digests of the replicated state, B1 and B4 launched at every
     mesh site on every rank, and ``sharded_knn`` with an all-invalid block
-    equal to the plain search. Then the kernels against their plain
-    versions at the mesh sites. Returns (kernel rows, facts)."""
+    equal to the plain search; (c) the single-card incremental run's
+    keyframes replayed through ``fusion_step``, the query-sharded fusion
+    over NCCL at world size 1 and on (b)'s ranks, all equal. Then the
+    kernels against their plain versions at the mesh sites and at (c)'s
+    per-rank blocks. Returns (kernel rows, facts)."""
     cfg = system_config()
     lc = dataclasses.replace(cfg.loop_closure, time_thres=SYS_LAP_S / 3.0)
     t0 = time.perf_counter()
@@ -1805,7 +2064,8 @@ def multichip_phase(tmp: str):
         dist.destroy_process_group()
     batch = mesh_lap(None, scans, imu, dataclasses.replace(
         cfg, fusion=cfg.fusion._replace(incremental_map=False)), lc, record=False)
-    inc = mesh_lap(None, scans, imu, cfg, lc, record=False)
+    with FusionSpy(record=True) as fspy:
+        inc = mesh_lap(None, scans, imu, cfg, lc, record=False)
     print_lap("(a) NCCL, world size 1", a)
     print_lap("single card, incremental_map=False", batch)
     print_lap("single card, incremental maps (default)", inc)
@@ -1827,6 +2087,26 @@ def multichip_phase(tmp: str):
     check(ra <= KF_RMSE_TOL_M and rinc <= KF_RMSE_TOL_M,
           f"multichip: keyframe RMSE (a) {ra:.4f} m, incremental {rinc:.4f} m")
 
+    # (c) the incremental run's keyframes replayed through fusion_step and
+    # through the query-sharded fusion over NCCL at world size 1
+    frec = {"first": fspy.first, "inputs": fspy.inputs}
+    fcfg = frec["first"][1]
+    n_solved = sum(not w for _, w in frec["inputs"])
+    c_single = fusion_replay(single_steps(frec), frec)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_rendezvous_c",
+                            world_size=1, rank=0)
+    try:
+        c_n1 = fusion_replay(dist_steps(make_mesh(1, axis="kf"), frec), frec)
+    finally:
+        dist.destroy_process_group()
+    sites1 = {(fcfg.window * fcfg.kf_surf_cap, fcfg.map_surf_cap): "fusion_surf",
+              (fcfg.window * fcfg.kf_edge_cap, fcfg.map_edge_cap): "fusion_edge"}
+    print(f"[multichip] (c) cuts: the {len(frec['inputs'])} keyframes of the single-card "
+          f"incremental run above, replayed from its first state without the closures' ring "
+          f"corrections (rebuild off), the pruned switch unset")
+    check_replay("fusion_step on the card", c_single, None, sites1, n_solved)
+    check_replay("make_distributed_fusion, NCCL world size 1", c_n1, c_single, sites1, n_solved)
+
     # (b) two gloo ranks on the card
     gen = torch.Generator(device=DEV).manual_seed(1)
     box = torch.tensor([60.0, 60.0, 8.0], device=DEV)
@@ -1837,7 +2117,8 @@ def multichip_phase(tmp: str):
     knn_mask[MC_KNN_P // MC_RANKS:] = False  # every block but the first's: all invalid
     torch.save({"scans": [tuple(x.cpu() for x in s) for s in scans], "imu": imu.__class__(
         *(x.cpu() for x in imu)), "cfg": cfg, "lc": lc, "knn_q": knn_q.cpu(),
-        "knn_p": knn_p.cpu(), "knn_mask": knn_mask.cpu()}, os.path.join(tmp, "lap.pt"))
+        "knn_p": knn_p.cpu(), "knn_mask": knn_mask.cpu(), "fusion_rec": frec},
+        os.path.join(tmp, "lap.pt"))
     del scans
     t0 = time.perf_counter()
     ranks = spawn_ranks(MC_RANKS, tmp)
@@ -1884,6 +2165,32 @@ def multichip_phase(tmp: str):
     zero = [x for x in rows if x["name"].startswith("knn_counted[") and x["valid"][1] == 0]
     check(any("fusion" in x["name"] for x in zero),
           "multichip: no fusion site with an all-invalid map shard was held")
+
+    # (c) on the two gloo ranks: each rank's block of the window's rows
+    sites2 = {(q // MC_RANKS, p): f"dist_{name}" for (q, p), name in sites1.items()}
+    for r, f in enumerate(ranks):
+        check_replay(f"make_distributed_fusion, gloo rank {r} of {MC_RANKS}", f["dist_fusion"],
+                     c_single, sites2, n_solved)
+    for r, f in enumerate(ranks):
+        df = f["dist_fusion"]
+        for snap in ("first", "grown"):
+            inputs = {("knn_counted",) + key: to_dev(v) for key, v in df[snap].items()
+                      if (key[0], key[1]) in sites2 and key[2] == 5}
+            check(len(inputs) == len(sites2),
+                  f"multichip (c): a B1 site of rank {r} was not recorded ({snap})")
+            print(f"[multichip] (c) rank {r}, {snap} call: valid queries of its block "
+                  + ", ".join(f"{sites2[key[1], key[2]]} {int(v[3].sum())}/{key[1]}"
+                              for key, v in sorted(inputs.items())))
+            # the preparation kernel once per map size (rank 1's maps are rank 0's)
+            rows += compare_sites(f"multichip_c_r{r}_{snap}_", inputs, df["counts"], sites2,
+                                  with_maps=r == 0 and snap == "grown")
+    # B4 at every site of rank 0's step (the ingest's table merges and
+    # keyframe downsamples), from keyframe MC_DIST_RECORD_FROM on
+    df = ranks[0]["dist_fusion"]
+    check(bool(df["seg"]), "multichip (c): no B4 site recorded on rank 0")
+    rows += [compare_segred("multichip_c_r0", key, to_dev(v),
+                            df["seg_counts"].get(("segred",) + key[2:], 0))
+             for key, v in sorted(df["seg"].items())]
     facts = {name: {"per_scan_host_ms": f["host_ms"], "backend_p50_ms": f["backend_p50_ms"],
                     "fired": f["fired"], "kf_rmse": rmse(f),
                     "gather_bytes": f["gather"][0][:1], "gather_event_ms": f["gather"][1],
@@ -1892,6 +2199,13 @@ def multichip_phase(tmp: str):
                              ("single_incremental", inc), ("gloo_rank0", ranks[0]),
                              ("gloo_rank1", ranks[1]))}
     facts["shard_gap_m"], facts["n1_bit_equal"] = shard_gap, equal
+    facts["dist_fusion"] = {
+        name: {"step_ms": f["ms"], "gather_bytes": f["gather"][0][:1],
+               "gather_event_ms": f["gather"][1], "gather_host_ms": f["gather"][2],
+               "bit_equal": None if f is c_single else replay_gap(f, c_single)[0]}
+        for name, f in (("single", c_single), ("nccl_world1", c_n1),
+                        ("gloo_rank0", ranks[0]["dist_fusion"]),
+                        ("gloo_rank1", ranks[1]["dist_fusion"]))}
     return rows, facts
 
 
@@ -2333,6 +2647,14 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+    phase_s, t_phase = {}, [time.perf_counter()]
+
+    def phase_done(label):
+        """The wall time since the previous phase ended, and the part of it
+        spent in the kernel checks."""
+        now = time.perf_counter()
+        phase_s[label] = (now - t_phase[0], CHECK_S[0])
+        t_phase[0], CHECK_S[0] = now, 0.0
 
     # 1. device
     name = torch.cuda.get_device_name(0)
@@ -2351,7 +2673,14 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] {src}: {line.strip()}")
     print(f"[build] {len(logs)} of {len(cuda_build.SOURCES)} sources compiled in {secs:.2f} s")
+    # the native host runtime, built beside the kernels by the host compiler
+    native.library()
+    check(native.available(), "build: the native runtime did not load")
+    print(f"[build] native runtime {native.library_path()} by {cuda_build.cxx_path()} "
+          f"({'built in this run' if 'lili_runtime' in logs else 'already built'}; compiler "
+          f"output: {logs.get('lili_runtime', '').strip() or 'none'})")
 
+    phase_done("device and build")
     # 3. main path
     cfgs = bench_configs()
     n = N_WARM + N_TIMED
@@ -2391,6 +2720,7 @@ def main(argv=None) -> int:
           f"kernel and plain trajectories differ by {gt_:.3e} m / {gr_:.3e} rad")
     main_inputs, main_seg = capture_inputs(frame, scans[n])
 
+    phase_done("main path")
     # 4. large-map path: the dense launch
     big = cfgs._replace(odometry=cfgs.odometry._replace(map_cap=LARGE_MAP))
     big_frame, _, _, big_counts, _ = run_path(big, scans[:N_WARM + 2], "large-map path")
@@ -2417,6 +2747,7 @@ def main(argv=None) -> int:
     unmasked = compare_kernel("knn_dense", f"unmasked_4096x{LARGE_MAP}",
                               (qs.contiguous(), pts, None, None), 0)
 
+    phase_done("large map and kernel checks")
     # 6. system phase, then B3 at each of its call sites
     sys_, sys_ms, sys_counts, sys_inputs, facts, icp_calls, (sys_seg_counts, sys_seg) = \
         system_phase()
@@ -2451,6 +2782,7 @@ def main(argv=None) -> int:
     del sys_, sys_inputs, icp_calls
     torch.cuda.empty_cache()
 
+    phase_done("system")
     # 7. Livox system phase
     lvx, lvx_ms, lvx_counts, lvx_seg_counts, lvx_seg, lvx_facts, lvx_inputs = livox_phase()
     check_livox(lvx, lvx_ms, lvx_counts, lvx_seg_counts, lvx_facts)
@@ -2466,6 +2798,7 @@ def main(argv=None) -> int:
           "B1: a call site of the Livox lap was not recorded")
     del lvx, lvx_inputs
 
+    phase_done("livox")
     # 8. B4 against its plain version at each call site of the three paths
     for phase, seen, seg_counts in (("main", main_seg, main_seg_counts),
                                     ("system", sys_seg, sys_seg_counts),
@@ -2475,6 +2808,7 @@ def main(argv=None) -> int:
             kernels.append(compare_segred(phase, key, inputs,
                                           seg_counts.get(("segred",) + key[2:], 0)))
 
+    phase_done("B4 checks")
     # 9. the runtime entry points, the pruned switch unset
     prev = os.environ.pop("LILI_OM_KNN_PRUNED", None)
     tmp = tempfile.mkdtemp(prefix="lili_runtime_")
@@ -2485,6 +2819,7 @@ def main(argv=None) -> int:
         if prev is not None:
             os.environ["LILI_OM_KNN_PRUNED"] = prev
 
+    phase_done("runtime")
     # 10. the multi-device path, the pruned switch unset
     prev = os.environ.pop("LILI_OM_KNN_PRUNED", None)
     tmp = tempfile.mkdtemp(prefix="lili_multichip_")
@@ -2496,6 +2831,7 @@ def main(argv=None) -> int:
             os.environ["LILI_OM_KNN_PRUNED"] = prev
     kernels += mc_rows
 
+    phase_done("multichip")
     # 12. evaluate, the pruned switch unset
     prev = os.environ.pop("LILI_OM_KNN_PRUNED", None)
     tmp = tempfile.mkdtemp(prefix="lili_evaluate_")
@@ -2508,6 +2844,7 @@ def main(argv=None) -> int:
             os.environ["LILI_OM_KNN_PRUNED"] = prev
     kernels += ev_rows
 
+    phase_done("evaluate")
     # 11. profile
     if args.profile:
         timed = sorted(host_ms[N_WARM:])
@@ -2522,7 +2859,10 @@ def main(argv=None) -> int:
                        "livox": {"per_scan_host_ms": lvx_ms, "lc_rejects": lvx_rejects,
                                  **lvx_facts},
                        "runtime": rt_facts, "multichip": mc_facts, "evaluate": ev_facts,
+                       "phase_s": phase_s,
                        "kernels": kernels + [unmasked]}, f, indent=1)
+    print("[timing] wall s per phase (of it in the kernel checks): " + "; ".join(
+        f"{k} {w:.1f} ({c:.1f})" for k, (w, c) in phase_s.items()))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,9 +10,10 @@ written by either package reads in the other:
   i32 line);
 * IMU: f64 stamp, 3 × f32 acc, 3 × f32 gyr.
 
-The transport (file records, readahead thread, bounded queue) is
-:mod:`..runtime.log`, pure Python where the JAX package uses its native
-library. Everything here is numpy on the host.
+The transport (file records, a readahead thread, a bounded queue) is the
+native library's ``LogWriter`` / ``LogReader`` (:mod:`..runtime.native`),
+as in the JAX package; :mod:`..runtime.log` is its plain version, with the
+same bytes, for the tests. Everything here is numpy on the host.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Iterator, NamedTuple
 
 import numpy as np
 
-from ..runtime import log
+from ..runtime import native
 
 _SCAN_DTYPE = np.dtype([
     ("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
@@ -44,7 +45,7 @@ class ImuRecord(NamedTuple):
 
 class DatasetWriter:
     def __init__(self, path: str):
-        self._w = log.LogWriter(path)
+        self._w = native.LogWriter(path)
 
     def write_scan(self, rec: ScanRecord):
         n = rec.pts.shape[0]
@@ -57,32 +58,32 @@ class DatasetWriter:
         header[:8] = np.frombuffer(np.float64(rec.stamp).tobytes(), np.uint8)
         header[8:12] = np.frombuffer(np.uint32(n).tobytes(), np.uint8)
         payload = np.concatenate([header, body.view(np.uint8).reshape(-1)])
-        self._w.append(log.KIND_SCAN, payload)
+        self._w.append(native.KIND_SCAN, payload)
 
     def write_imu(self, rec: ImuRecord):
         buf = np.empty(8 + 24, np.uint8)
         buf[:8] = np.frombuffer(np.float64(rec.stamp).tobytes(), np.uint8)
         buf[8:] = np.frombuffer(np.concatenate([rec.acc, rec.gyr]).astype("<f4").tobytes(),
                                 np.uint8)
-        self._w.append(log.KIND_IMU, buf)
+        self._w.append(native.KIND_IMU, buf)
 
     def close(self):
         self._w.close()
 
 
 def read_dataset(path: str, readahead: int = 64) -> Iterator[ScanRecord | ImuRecord]:
-    """Stream records in file order through the readahead reader."""
-    r = log.LogReader(path, readahead=readahead)
+    """Stream records in file order through the native readahead reader."""
+    r = native.LogReader(path, readahead=readahead)
     try:
         for kind, raw in r:
-            if kind == log.KIND_SCAN:
+            if kind == native.KIND_SCAN:
                 stamp = float(np.frombuffer(raw[:8], "<f8")[0])
                 n = int(np.frombuffer(raw[8:12], "<u4")[0])
                 body = raw[12:12 + n * _SCAN_DTYPE.itemsize].view(_SCAN_DTYPE)
                 pts = np.stack([body["x"], body["y"], body["z"]], axis=1)
                 yield ScanRecord(stamp, pts, np.asarray(body["rel_time"]),
                                  np.asarray(body["refl"]), np.asarray(body["line"]))
-            elif kind == log.KIND_IMU:
+            elif kind == native.KIND_IMU:
                 stamp = float(np.frombuffer(raw[:8], "<f8")[0])
                 v = np.frombuffer(raw[8:32], "<f4")
                 yield ImuRecord(stamp, v[:3].copy(), v[3:6].copy())

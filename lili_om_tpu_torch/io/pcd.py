@@ -2,9 +2,10 @@
 (numpy only), the counterpart of the reference's PCL global-map dump
 (BackendFusion.cpp:2697-2722), with the path an argument.
 
-Binary-format PCD v0.7, xyz (+ optional intensity). The port writes its
-maps with :func:`write_pcd`; the JAX package's native C++ writer writes the
-same bytes.
+Binary-format PCD v0.7, xyz (+ optional intensity). The port's
+``export_map`` writes its maps through the native writer
+(``runtime/native.py:pcd_write_native``), as the JAX package does;
+:func:`write_pcd` is its plain version and writes the same bytes.
 """
 from __future__ import annotations
 

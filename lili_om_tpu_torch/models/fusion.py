@@ -599,20 +599,42 @@ def _zero_batches(mid: FusionMid, dtype):
                             point_b=torch.zeros_like(eb), scores=z2(eb), mask=zb(eb)))
 
 
-def _match_with_maps(mid: FusionMid, cfg: FusionConfig):
-    """Flattened-window surf + edge searches against the incremental maps."""
+def match_rows(mid: FusionMid, cfg: FusionConfig, surf_rows: slice = slice(None),
+               edge_rows: slice = slice(None)):
+    """The match of one block of the flattened window's query rows against
+    the maps in ``mid``: surf rows ``surf_rows`` of the (W·Sc) and edge rows
+    ``edge_rows`` of the (W·Ec), searched (B1 on the card) and fitted. Each
+    query's answer depends on that query alone, so the blocks of a split,
+    concatenated in row order, equal the whole window's rows. Returns the
+    block's flat (PlaneFactorBatch, EdgeFactorBatch)."""
     pw_surf, pw_edge = window_queries(mid.ts, mid.qs, mid.win_surf_b, mid.win_edge_b, cfg)
-    surf_qm = mid.win_surf_mask.reshape(-1)
-    edge_qm = mid.win_edge_mask.reshape(-1)
+    pw_surf, pw_edge = pw_surf[surf_rows], pw_edge[edge_rows]
+    surf_qm = mid.win_surf_mask.reshape(-1)[surf_rows]
+    edge_qm = mid.win_edge_mask.reshape(-1)[edge_rows]
     d2s, idxs, d2e, idxe = knn_pair_auto(
         pw_surf, mid.map_surf, mid.map_surf_mask, pw_edge, mid.map_edge,
         mid.map_edge_mask, k=cfg.k, qm1=surf_qm, qm2=edge_qm)
-    sb_flat = surf_fit_and_gate(mid.win_surf_b.reshape(-1, 3), pw_surf, surf_qm,
-                                mid.win_surf_refl.reshape(-1), d2s,
+    sb_flat = surf_fit_and_gate(mid.win_surf_b.reshape(-1, 3)[surf_rows], pw_surf, surf_qm,
+                                mid.win_surf_refl.reshape(-1)[surf_rows], d2s,
                                 mid.map_surf[idxs], mid.map_refl[idxs], cfg)
-    eb_flat = edge_fit_and_gate(mid.win_edge_b.reshape(-1, 3), edge_qm, d2e,
+    eb_flat = edge_fit_and_gate(mid.win_edge_b.reshape(-1, 3)[edge_rows], edge_qm, d2e,
                                 mid.map_edge[idxe], cfg)
-    return window_batches(sb_flat, eb_flat, cfg) + (mid.enough_map,)
+    return sb_flat, eb_flat
+
+
+def _match_with_maps(mid: FusionMid, cfg: FusionConfig):
+    """Flattened-window surf + edge searches against the incremental maps."""
+    return window_batches(*match_rows(mid, cfg), cfg) + (mid.enough_map,)
+
+
+def gate_batches(surf_batches: PlaneFactorBatch, edge_batches: EdgeFactorBatch,
+                 enough_map: torch.Tensor, dtype):
+    """No lidar factors while the map is too sparse: every mask and score
+    of both batches gated by ``enough_map``."""
+    return (surf_batches._replace(mask=surf_batches.mask & enough_map,
+                                  scores=surf_batches.scores * enough_map.to(dtype)),
+            edge_batches._replace(mask=edge_batches.mask & enough_map,
+                                  scores=edge_batches.scores * enough_map.to(dtype)))
 
 
 def _finish(state: FusionState, mid: FusionMid, surf_batches, edge_batches,
@@ -745,11 +767,6 @@ def fusion_step(state: FusionState, surf_pts, surf_mask, surf_refl, edge_pts, ed
             surf_batches, edge_batches, enough_map = (match_fn or default_map_and_match)(
                 state, mid.ts, mid.qs, mid.win_surf_b, mid.win_surf_mask, mid.win_surf_refl,
                 mid.win_edge_b, mid.win_edge_mask, cfg)
-        # no lidar factors while the map is too sparse
-        surf_batches = surf_batches._replace(
-            mask=surf_batches.mask & enough_map,
-            scores=surf_batches.scores * enough_map.to(dtype))
-        edge_batches = edge_batches._replace(
-            mask=edge_batches.mask & enough_map,
-            scores=edge_batches.scores * enough_map.to(dtype))
+        surf_batches, edge_batches = gate_batches(surf_batches, edge_batches, enough_map,
+                                                  dtype)
     return _finish(state, mid, surf_batches, edge_batches, cfg, noise, warmup)

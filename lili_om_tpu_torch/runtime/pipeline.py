@@ -27,10 +27,18 @@ Differences from the JAX runner:
   the run.) ``stop(drain=True)`` also waits until every scan and keyframe
   handed to a worker has been processed, not only until the queues are
   empty, and raises if that does not happen within its timeout.
-* The sequencer is the pure-Python ``_PySequencer`` (the JAX runner's own
-  fallback for its native one, ``pipeline.py:35-56``), and IMU samples go
-  straight to ``LiliOmSystem.push_imu``, which locks its buffer (the JAX
-  runner's locked fallback for its native ring, ``:143-145``).
+* **No fallback.** The sequencer is the native ``Sequencer`` and the IMU
+  goes through the native SPSC ``Ring`` (``runtime/native.py``, the port's
+  copy of ``native/lili_runtime.cc``), as in the JAX runner, but a failed
+  build of the library raises instead of falling back to
+  :class:`_PySequencer` (kept as the plain version for the tests) and the
+  locked push.
+* **IMU order is kept when the ring is full.** Producers push one at a
+  time (the ring's single producer); a batch that does not fit first
+  drains the ring into the system, under the lock the frontend's drain
+  takes, then pushes directly, so the system's buffer stays in stamp order.
+  (The JAX runner pushes it directly and leaves the older samples in the
+  ring.)
 * ``warm_graph_solver`` is not started: it warms XLA compiles, which the
   port does not have.
 
@@ -51,13 +59,20 @@ from typing import Optional
 
 import numpy as np
 
+from . import native
+
 SCAN_STREAM = 0
 IMU_STREAM = 1
+# the IMU ring's records (stamp, acc, gyr: 56 bytes) and capacity, as the
+# JAX runner's (the 200 Hz stream, producer thread → frontend worker)
+_IMU_REC = np.dtype([("stamp", "<f8"), ("acc", "<f8", 3), ("gyr", "<f8", 3)])
+IMU_RING_CAP = 8192
 
 
 class _PySequencer:
-    """Multi-stream stamp aligner (a copy of the JAX runner's pure-Python
-    sequencer, the semantics of ``native/lili_runtime.cc``'s ``Sequencer``)."""
+    """Multi-stream stamp aligner in pure Python: a copy of the JAX runner's
+    fallback, the plain version of the native :class:`native.Sequencer`
+    (the tests hold the two together; no path uses it)."""
 
     def __init__(self, n_streams: int, tol: float):
         self.q = [[] for _ in range(n_streams)]
@@ -106,8 +121,15 @@ class PipelineRunner:
         self._scan_store: dict[int, tuple] = {}
         self._scan_seq = 0
         self._store_lock = threading.Lock()
-        self._seq = _PySequencer(2, scan_period)
+        self._seq = native.Sequencer(2, scan_period)
         self._seq_lock = threading.Lock()
+        self._imu_ring = native.Ring(_IMU_REC.itemsize, IMU_RING_CAP)
+        # producers push one at a time (the ring's single producer); the
+        # frontend's drain and a full ring's direct push hold _imu_lock
+        self._imu_push_lock = threading.Lock()
+        self._imu_lock = threading.Lock()
+        self.n_imu_ring = 0  # samples that went through the ring
+        self.n_imu_direct = 0  # samples pushed directly (ring full)
         self._scan_period = scan_period
         self._ready: queue.Queue = queue.Queue(maxsize=queue_size)
         self._kf_queue: queue.Queue = queue.Queue(maxsize=8)
@@ -130,7 +152,21 @@ class PipelineRunner:
     # ---- producers -----------------------------------------------------
     def feed_imu(self, stamps, accs, gyrs):
         stamps = np.atleast_1d(stamps)
-        self.system.push_imu(stamps, np.atleast_2d(accs), np.atleast_2d(gyrs))
+        accs, gyrs = np.atleast_2d(accs), np.atleast_2d(gyrs)
+        with self._imu_push_lock:
+            # only the consumer frees room, so the producer's check is safe
+            if len(self._imu_ring) + len(stamps) < self._imu_ring.capacity:
+                recs = np.empty(len(stamps), _IMU_REC)
+                recs["stamp"], recs["acc"], recs["gyr"] = stamps, accs, gyrs
+                for r in recs.view(np.uint8).reshape(len(stamps), -1):
+                    if not self._imu_ring.push(r):
+                        raise RuntimeError("IMU ring full after its room check")
+                self.n_imu_ring += len(stamps)
+            else:
+                with self._imu_lock:
+                    self._drain_imu_locked()
+                    self.system.push_imu(stamps, accs, gyrs)
+                self.n_imu_direct += len(stamps)
         with self._seq_lock:
             # an IMU sample at t certifies sweep coverage up to t. The gate
             # accepts entries within ±tol of the scan stamp, so shift by
@@ -274,6 +310,18 @@ class PipelineRunner:
                 self.error = e
         self._stop.set()
 
+    def _drain_imu_locked(self):
+        """Consumer side of the IMU ring (the caller holds ``_imu_lock``):
+        the pending samples into the system buffer, one ``push_imu``."""
+        recs = []
+        while (r := self._imu_ring.pop()) is not None:
+            recs.append(r)
+        if recs:
+            batch = np.stack(recs).view(_IMU_REC).reshape(-1)
+            self.system.push_imu(np.ascontiguousarray(batch["stamp"]),
+                                 np.ascontiguousarray(batch["acc"]),
+                                 np.ascontiguousarray(batch["gyr"]))
+
     # ---- threads -------------------------------------------------------
     def _front_work(self):
         while not self._stop.is_set():
@@ -282,6 +330,8 @@ class PipelineRunner:
             except queue.Empty:
                 continue
             try:
+                with self._imu_lock:
+                    self._drain_imu_locked()
                 self._front_step(kind, payload, stamp)
             except BaseException as e:
                 self._fail(e)

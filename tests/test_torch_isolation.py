@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``lili_om_tpu_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or the JAX package, the package imports
 with ``jax`` made unimportable (also in a ``spawn``ed child, as the ingest
-workers start, which must not initialize CUDA), and its entry points refuse
-to drop to the CPU on their own."""
+workers start, which must not initialize CUDA), its native runtime loads
+the port's own library and nothing under ``native/``, and its entry points
+refuse to drop to the CPU on their own."""
 import ast
 import multiprocessing as mp
 import subprocess
@@ -65,8 +66,8 @@ RUNTIME_MODULES = ["lili_om_tpu_torch.apps.run_bag", "lili_om_tpu_torch.apps.run
                    "lili_om_tpu_torch.io.checkpoint", "lili_om_tpu_torch.io.dataset",
                    "lili_om_tpu_torch.io.pcd", "lili_om_tpu_torch.io.rosbag",
                    "lili_om_tpu_torch.io.velodyne", "lili_om_tpu_torch.runtime.ingest",
-                   "lili_om_tpu_torch.runtime.log", "lili_om_tpu_torch.runtime.pipeline",
-                   "lili_om_tpu_torch.utils.timing"]
+                   "lili_om_tpu_torch.runtime.log", "lili_om_tpu_torch.runtime.native",
+                   "lili_om_tpu_torch.runtime.pipeline", "lili_om_tpu_torch.utils.timing"]
 
 
 def _import_without_jax(mods):
@@ -91,6 +92,42 @@ def test_runtime_modules_import_in_a_spawned_child():
     with mp.get_context("spawn").Pool(1) as pool:
         leaked, cuda = pool.apply(_import_without_jax, (RUNTIME_MODULES,))
     assert leaked == [] and cuda is False
+
+
+def test_native_runtime_loads_no_library_of_the_jax_package(tmp_path):
+    """A process that drives every native path of the port (the runner's
+    sequencer and IMU ring, the dataset log both ways, the map export's PCD
+    writer) maps the port's own library from ``lili_om_tpu_torch/_build/``,
+    no file under ``native/``, and imports nothing of the JAX package."""
+    code = f"""
+import sys
+import numpy as np
+from lili_om_tpu_torch.io import dataset
+from lili_om_tpu_torch.runtime import native
+from lili_om_tpu_torch.runtime.pipeline import PipelineRunner
+
+class Sink:
+    def push_imu(self, *a):
+        pass
+
+r = PipelineRunner(Sink())
+r.feed_imu(np.arange(4) * 0.005, np.zeros((4, 3)), np.zeros((4, 3)))
+w = dataset.DatasetWriter({str(tmp_path / "d.lom")!r})
+w.write_imu(dataset.ImuRecord(0.0, np.zeros(3, np.float32), np.ones(3, np.float32)))
+w.close()
+assert len(list(dataset.read_dataset({str(tmp_path / "d.lom")!r}))) == 1
+assert native.pcd_write_native({str(tmp_path / "m.pcd")!r}, np.zeros((3, 3)))
+maps = open("/proc/self/maps").read()
+print([line.split()[-1] for line in maps.splitlines() if "lili_runtime" in line][:1])
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "lili_om_tpu")))
+print(maps.count({str(ROOT / "native")!r}))
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    lib, leaked, under_native = r.stdout.strip().splitlines()
+    assert lib.startswith(f"['{PORT / '_build' / 'liblili_runtime-'}") and lib.endswith(".so']")
+    assert leaked == "[]" and under_native == "0"
 
 
 def _entry_points():

@@ -392,7 +392,11 @@ def test_sequencer_gates_on_imu_coverage():
     assert runner._ready.qsize() == 0
     t2 = np.arange(1.05, 1.25, 0.005)  # past the sweep end
     runner.feed_imu(t2, np.zeros((len(t2), 3)), np.zeros((len(t2), 3)))
-    assert runner._ready.qsize() == 1 and runner.system.n_imu == len(t1) + len(t2)
+    assert runner._ready.qsize() == 1
+    # the samples wait in the IMU ring until the frontend drains it
+    assert len(runner._imu_ring) == runner.n_imu_ring == len(t1) + len(t2)
+    runner._drain_imu_locked()
+    assert runner.system.n_imu == len(t1) + len(t2) and len(runner._imu_ring) == 0
 
 
 def test_bounded_queue_drops_oldest():

@@ -300,3 +300,83 @@ def _tree(nt, prefix="") -> dict:
         else:
             out[prefix + k] = _np(v)
     return out
+
+
+# ---------------------------------------------------------------------------
+# parallel/dist_fusion.py
+# ---------------------------------------------------------------------------
+
+DIST_KF = 4  # keyframes: the first window - 1 warm up, the rest solve
+
+
+def dist_fusion_config() -> FusionConfig:
+    """tests/test_dist_fusion.py's ``CFG``."""
+    return FusionConfig(window=3, local_map_width=4, kf_surf_cap=512, kf_edge_cap=128,
+                        map_surf_cap=1024, map_edge_cap=256, use_reflectivity=False,
+                        weight_gate=0.3, lidar_const=7.5, max_num_iter=2, imu_cap=16)
+
+
+def dist_fusion_inputs(cfg: FusionConfig, g_norm: float, seed: int = 0) -> list:
+    """``DIST_KF`` keyframes of a room seen from rest, float64 numpy in
+    ``fusion_step``'s argument order: 2048 surf points on the floor and two
+    walls (a tenth masked), 512 edge points along four vertical poles, both
+    resampled for every keyframe, and a resting IMU interval with a little
+    gyro noise. Keyframe 1 sees one pole and keyframes 2 and 3 none, so at
+    the solved keyframes the second rank's block of edge rows holds no
+    valid query."""
+    rng = np.random.default_rng(seed)
+    n_s, n_e, n_i = 2048, 512, cfg.imu_cap
+    out = []
+    for kf in range(DIST_KF):
+        u = rng.uniform(-3.0, 3.0, (n_s, 2))
+        h = rng.uniform(0.0, 3.0, n_s)
+        which = rng.integers(0, 3, n_s)
+        surf = np.where((which == 0)[:, None], np.stack([u[:, 0], u[:, 1], np.zeros(n_s)], 1),
+                        np.where((which == 1)[:, None],
+                                 np.stack([np.full(n_s, 3.0), u[:, 1], h], 1),
+                                 np.stack([u[:, 0], np.full(n_s, 3.0), h], 1)))
+        surf = surf + 0.01 * rng.standard_normal((n_s, 3)) + np.array([0.0, 0.0, -1.0])
+        poles = np.array([[2.0, -2.0], [-2.0, 2.0], [2.5, 2.5], [-2.5, -2.5]])
+        pole = rng.integers(0, 4, n_e)
+        edge = np.stack([poles[pole, 0], poles[pole, 1], rng.uniform(-1.0, 2.0, n_e)], 1)
+        edge = edge + 0.01 * rng.standard_normal((n_e, 3))
+        edge_mask = np.full(n_e, kf == 0) | ((kf == 1) & (pole == 0))
+        accs = np.zeros((n_i, 3))
+        accs[:, 2] = g_norm
+        out.append([surf, rng.uniform(size=n_s) > 0.1, np.zeros(n_s), edge, edge_mask,
+                    np.full(n_i, 0.005), accs, 1e-3 * rng.standard_normal((n_i, 3)),
+                    np.ones(n_i, bool)])
+    return out
+
+
+def dist_fusion_ranks(mesh, workdir) -> dict:
+    """The query-sharded step over ``DIST_KF`` keyframes from a fresh state
+    in float64 and float32, and the single-device ``fusion_step`` on the
+    same inputs in this process; each run's final state and outputs, the
+    per-keyframe correspondence counts and the rank blocks."""
+    from lili_om_tpu_torch.models.fusion import fusion_step, init_fusion_state
+    from lili_om_tpu_torch.ops.preintegration import ImuNoise
+    from lili_om_tpu_torch.parallel import make_distributed_fusion, make_sharded_state
+
+    cfg, noise = dist_fusion_config(), ImuNoise()
+    warm, blocks = make_distributed_fusion(mesh, cfg, noise, axis="d", warmup=True)
+    main, _ = make_distributed_fusion(mesh, cfg, noise, warmup=False)
+    out = {"blocks": np.array([[s.start, s.stop, e.start, e.stop] for s, e in blocks])}
+    for dt in (torch.float64, torch.float32):
+        tag = str(dt).split(".")[1]
+        inputs = [[_t(a).to(dt) if a.dtype == np.float64 else _t(a) for a in kf]
+                  for kf in dist_fusion_inputs(cfg, noise.g_norm)]
+        st = make_sharded_state(mesh, cfg, noise, dtype=dt, axis="d")
+        single = init_fusion_state(cfg, noise, dtype=dt, device=CPU)
+        counts = []
+        for k, args in enumerate(inputs):
+            w = k + 1 < cfg.window
+            st, o = (warm if w else main)(st, *args)
+            single, so = fusion_step(single, *args, cfg=cfg, noise=noise, warmup=w, device=CPU)
+            counts.append([int(o.n_surf_corr), int(o.n_edge_corr)])
+        out.update({f"{tag}_state.{k}": v for k, v in _tree(st).items()})
+        out.update({f"{tag}_out.{k}": v for k, v in _tree(o).items()})
+        out.update({f"{tag}_single_state.{k}": v for k, v in _tree(single).items()})
+        out.update({f"{tag}_single_out.{k}": v for k, v in _tree(so).items()})
+        out[f"{tag}_counts"] = np.array(counts)
+    return out
