@@ -48,7 +48,9 @@ Phases, each printing its own line; any failed check exits non-zero:
    its visits per block against the plain schedule's, its bound counting
    only the pairs of the tiles it scanned; and B3's map kernels (Morton
    keys, scatter into tiles) against their plain versions;
-7. Livox phase: ``LiliOmSystem.process_scan_livox`` at the whole ``fr_iosb``
+7. Livox phase, its lap run in a process of its own beside phase 6's lap
+   (its kernel checks after both laps):
+   ``LiliOmSystem.process_scan_livox`` at the whole ``fr_iosb``
    preset (eigen-patch features, reflectivity-weighted fusion) on the same
    lap with Horizon sweeps at full width (6 × 4000 points, ``n_cols``
    4000), closures every 10 scans, the pruned switch unset: odometry
@@ -70,13 +72,14 @@ Phases, each printing its own line; any failed check exits non-zero:
    unset; read back with ``read_dataset`` (the native reader) into direct
    ``process_scan`` calls with a checkpoint after 35 scans; the same log
    through ``ShardedIngest`` (2 spawned decode processes) into a serial
-   ``PipelineRunner`` over the first 35 scans (equal to the direct run's
-   checkpoint there) and an overlapped one over all 70 with the loop thread
+   ``PipelineRunner`` and an overlapped one, each over the first 35 scans
+   (equal to the direct run's checkpoint there) with the loop thread
    off, each with the native sequencer and IMU ring (their types checked,
    every IMU sample counted through the ring), each equal to the direct
-   run (bit for bit, or within ``TRAJ_TOL_*`` with the gap printed); the checkpoint
+   run's checkpoint (bit for bit, or within ``TRAJ_TOL_*`` with the gap printed); the checkpoint
    loaded into a fresh system and run on, equal to the direct run's end;
-   the pipeline again with the loop thread on (1 s): every scan processed,
+   meanwhile, in a process of its own, the pipeline again with the loop
+   thread on (1 s): every scan processed,
    no worker exception, at least one loop closed by the loop thread, the
    keyframe RMSE within ``KF_RMSE_TOL_M``, the exported map (the native
    PCD writer, the same bytes as ``write_pcd``) at a median distance to
@@ -84,9 +87,15 @@ Phases, each printing its own line; any failed check exits non-zero:
    keyframes archived surf features; ``record_synthetic`` on the card.
    Each run launches B1 and B4, no B3 and no plain version; it prints the
    scan rates serial and overlapped, the ``backend`` p50 and the decode
-   time;
+   time. Beside the phase, in a process of its own, the soak:
+   ``apps/soak_long_run.main([SOAK_KF, "--spill", "--speed-up",
+   SOAK_SPEED_UP])`` (the example's configuration on a lap that closes)
+   returns 0 (keyframe latency flat, graph solve under 1 s, resident
+   archives bounded), its report (latency and graph-solve quartiles,
+   resident archives) printed, B1 and B4 launched, no B3 and no plain
+   version;
 10. multichip: ``LiliOmSystem(mesh=…)`` at the whole ``fr_iosb_rot``
-   preset on the runtime phase's 70 lap scans, closures every 10 scans,
+   preset on the first 50 scans of the runtime phase's lap, closures every 10 scans,
    the pruned switch unset. (a) NCCL at world size 1: equal to the
    single-card system with ``incremental_map=False`` (bit for bit, or within
    ``TRAJ_TOL_*``), keyframe RMSE of both it and the default system within
@@ -111,7 +120,25 @@ Phases, each printing its own line; any failed check exits non-zero:
    every rank, no B3 and no plain version; B1 against its plain version at
    each rank's block (its first call and its first from keyframe 10 on,
    each block's valid queries printed); the step time and the
-   ``all_gather`` (bytes, CUDA-event time) per keyframe;
+   ``all_gather`` (bytes, CUDA-event time) per keyframe. (d)
+   ``PipelineRunner`` over the mesh system on the lap's first 45 scans
+   (the IMU fed up front, the scans from host copies, lossless, closure
+   attempts every 10 scans counted in scans, the first closure firing at
+   scan 40): (d1) serially at NCCL world
+   size 1, its replicated-state digest equal to (a)'s after the same 45
+   scans (``mesh_lap`` records it); (d2) overlapped there, the same
+   keyframe stamps and fired scans as (d1) and keyframes within 0.05 m;
+   (d3) both on (b)'s two gloo ranks, equal digests on both ranks, the
+   serial one equal to (b)'s after 45 scans, the overlapped one against
+   the serial as in (d2); ``check_replicated`` true at ``stop()`` in every
+   run; B1 with its map preparation at the sharded odometry and both
+   map-shard searches and B4 at both map-shard builds on every rank, no B3
+   and no plain version; each run's scans/s, ``backend`` p50 and fired
+   closures printed; then B1 and B4 against their plain versions at
+   (d1)'s sites from scan 40 on. (a), the batch-map reference, (d1), (d2)
+   and (c)'s single-card and world-1 replays run in this process while
+   (b)'s ranks run, so their times and the ranks' come under each other's
+   load;
 11. with ``--profile``, a ``torch.profiler`` window over a few main-path
    frames (device busy share, kernels by device time), and in phase 9 a
    profiler window over one more direct and one more pipeline run (device
@@ -137,7 +164,10 @@ Phases, each printing its own line; any failed check exits non-zero:
    ``hashgrid_knn`` on the card at the odometry's search shape finds every
    neighbour B1 finds inside the NN gate for each query whose 27 cells
    hash to distinct buckets, and misses one elsewhere only where its result
-   holds a point twice; both timed.
+   holds a point twice; both timed; in this process while (a) and (b)'s
+   processes run, (h) ``apps/diag_backend.run`` over ``DIAG_FRAMES``
+   frames: both ATEs finite and printed, B1 and B4 launched, no plain
+   version.
 
 Then one line with the ``kernels`` JSON, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. It imports nothing of the
@@ -146,8 +176,10 @@ JAX package and needs no network.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
+import io
 import hashlib
 import importlib.util
 import json
@@ -166,7 +198,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from lili_om_tpu_torch import cuda_build
-from lili_om_tpu_torch.apps import evaluate_presets, run_loop_closure
+from lili_om_tpu_torch.apps import diag_backend, evaluate_presets, run_loop_closure, soak_long_run
 from lili_om_tpu_torch.device import plain_kernels
 from lili_om_tpu_torch.frame import Frame, bench_configs, sim_scans
 from lili_om_tpu_torch.io.checkpoint import load_system, save_system
@@ -264,7 +296,8 @@ ACQUIRED_MIN = 0.9
 # phase's first closure fires at scan 40), so 70 scans leave the loop
 # thread some 30 scans of revisit to close on
 RT_SCANS, RT_SAVE_AT, RT_INGEST_HOSTS, RT_LOOP_PERIOD_S = 70, 35, 2, 1.0
-# multichip phase: the runtime phase's scans of the lap, closures every
+# multichip phase: the first MC_SCANS scans of the lap ((a)'s first closure
+# fires at scan 40; (d) runs the first MC_RUNNER_SCANS), closures every
 # LC_EVERY scans, 2 gloo ranks sharing the card (NCCL refuses two ranks on
 # one device). The 2-rank run deduplicates voxels per rank where a voxel
 # spans two ranks' keyframes: its keyframes are held to the world-1 run's
@@ -273,12 +306,28 @@ RT_SCANS, RT_SAVE_AT, RT_INGEST_HOSTS, RT_LOOP_PERIOD_S = 70, 35, 2, 1.0
 # empty ring: zero walk bounds) and from scan MC_RECORD_FROM on (grown).
 # The sharded_knn check: MC_KNN_Q queries against MC_KNN_P points, the
 # second rank's block all invalid
-MC_SCANS, MC_RANKS, MC_SHARD_TOL_M, MC_RECORD_FROM = RT_SCANS, 2, 0.05, SYS_RECORD_FROM
+MC_SCANS, MC_RANKS, MC_SHARD_TOL_M, MC_RECORD_FROM = 50, 2, 0.05, SYS_RECORD_FROM
 MC_KNN_Q, MC_KNN_P = 4096, 65536
 # (c): B1's inputs on each rank at its first call and at its first from
 # this keyframe on (the maps grown)
 MC_DIST_RECORD_FROM = 10
 MC_JOIN_S = 900
+# (d): PipelineRunner over the mesh on the lap's first MC_RUNNER_SCANS scans,
+# closure attempts every LC_EVERY scans; (a) and (b) record their
+# replicated-state digest after the same scans for it. No keyframe is older
+# than time_thres (3.67 s) before scan ~37, so the first 35 scans
+# (RT_SAVE_AT) would attempt only without a candidate: 45 take in (a)'s
+# first closure, at scan 40
+MC_RUNNER_SCANS = 45
+# the soak (apps/soak_long_run.py with --spill), in a process of its own
+# beside the runtime phase's runs, to SOAK_KF keyframes on a lap that closes
+# (SOAK_SPEED_UP, a departure from the example's 8 s ramp, under which no
+# closure fires in two laps): the count is checked after each lap of ~100
+# keyframes and closures fire from the second lap on, time_thres being 0.6
+# of a lap, so a target within the second lap runs two laps, the fewest that
+# measure the graph solve; evaluate (h), in this process while (a) and (b)'s
+# processes run: apps/diag_backend.py over DIAG_FRAMES frames
+SOAK_KF, SOAK_SPEED_UP, DIAG_FRAMES = 150, 0.001, 60
 # evaluate phase: the JAX golden-loop harness (examples/evaluate_presets.py)
 # over its default presets, EV_FRAMES frames each, float32, each preset's
 # keyframe ATE held to its bound there (1.0 m); beside it, for reading
@@ -699,6 +748,13 @@ def compare_sites(phase, inputs, counts, names, with_maps: bool = True):
     return rows
 
 
+def lap_trajectory():
+    """The golden loop's circle at 1.3 m/s, one lap in ``SYS_LAP_S``, and
+    its radius."""
+    radius = 1.3 * SYS_LAP_S / (2.0 * math.pi)
+    return circle_trajectory(radius=radius, period=SYS_LAP_S, speed_up=3.0), radius
+
+
 def sim_lap(cfg, n: int, livox: bool = False):
     """The golden loop of examples/evaluate_presets.py, cut to ``n`` scans:
     a circle at 1.3 m/s in the room world that returns to its start within
@@ -707,8 +763,7 @@ def sim_lap(cfg, n: int, livox: bool = False):
     images, or with ``livox`` Horizon sweeps of 6 × 4000 points as flat
     streams (pts, line, time ratio, reflectivity, valid). Returns (scans,
     imu, trajectory, radius, sensor-in-body (t_sl, q_sl))."""
-    radius = 1.3 * SYS_LAP_S / (2.0 * math.pi)
-    traj = circle_trajectory(radius=radius, period=SYS_LAP_S, speed_up=3.0)
+    traj, radius = lap_trajectory()
     world = make_room_world(device=DEV)
     pattern = (livox_pattern(LIVOX_LINES, LIVOX_PTS, device=DEV) if livox
                else spinning_pattern(n_rings=SYS_RINGS, n_cols=SYS_COLS, device=DEV))
@@ -1085,6 +1140,19 @@ def check_livox(sys_, host_ms, counts, seg_counts, facts):
     check(sum(seg_counts.values()) > 0, "livox: B4 did not launch")
 
 
+def livox_run():
+    """Phase 7's lap and its checks in a process of its own, beside phase
+    6's lap (:func:`start_child`): :func:`livox_phase`, then
+    :func:`check_livox`. Returns what the kernel checks after both laps
+    need: the configs, the rejects, the per-scan ms, the launch counts, the
+    facts and the recorded B4 and B1 inputs."""
+    lvx, ms, counts, seg_counts, seg_seen, facts, inputs = livox_phase()
+    check_livox(lvx, ms, counts, seg_counts, facts)
+    return {"odo_cfg": lvx.odo_cfg, "fusion_cfg": lvx.fusion_cfg, "lc_cfg": lvx.lc_cfg,
+            "lc_rejects": lvx.lc_rejects, "host_ms": ms, "counts": counts,
+            "seg_counts": seg_counts, "seg_seen": seg_seen, "facts": facts, "inputs": inputs}
+
+
 class PlainSpy(Patch):
     """Counts the calls of one plain version (``K.knn``, ``K.knn_map_plain``,
     ``SG.segment_sum_sorted_plain``): on the card's path none may run."""
@@ -1256,6 +1324,157 @@ def profile_runtime(label: str, run, wall_s: float):
             "api": {e.key: [e.count, e.self_cpu_time_total / 1e3] for e in api}}
 
 
+def child_run(_i: int, name: str, tmp: str, args: tuple):
+    """``CHILD_RUNS[name](*args)`` in a spawned process on ``cuda:0``, the
+    pruned switch unset: its standard output kept and saved with its
+    facts to ``tmp/{name}.pt`` (written out here if it raises)."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    os.environ.pop("LILI_OM_KNN_PRUNED", None)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            facts = CHILD_RUNS[name](*args)
+    except BaseException:
+        sys.stdout.write(buf.getvalue())
+        sys.stdout.flush()
+        raise
+    torch.save({"out": buf.getvalue(), "facts": facts}, os.path.join(tmp, f"{name}.pt"))
+
+
+CHILDREN = []  # every start_child process context, stopped at the end
+
+
+def start_child(name: str, tmp: str, *args):
+    """:func:`child_run` of ``name`` spawned, beside what this process runs
+    next; :func:`join_child` waits for it."""
+    ctx = mp.spawn(child_run, args=(name, tmp, args), nprocs=1, join=False)
+    CHILDREN.append(ctx)
+    return ctx
+
+
+def stop_child(ctx):
+    for proc in ctx.processes:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+
+
+def join_child(ctx, name: str, tmp: str):
+    """Waits at most ``MC_JOIN_S`` seconds for a :func:`start_child` run
+    (stopping it then), prints its output and returns its facts; a run that
+    raised raises here."""
+    deadline = time.monotonic() + MC_JOIN_S
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline, f"{name}: the run ran over {MC_JOIN_S} s")
+    finally:
+        stop_child(ctx)
+    got = torch.load(os.path.join(tmp, f"{name}.pt"), weights_only=False)
+    sys.stdout.write(got["out"])
+    return got["facts"]
+
+
+def runtime_config():
+    """The runtime phase's configuration: the ``fr_iosb_rot`` preset, the
+    closures' time gate cut as in the system phase. Returns (cfg, lc)."""
+    cfg = system_config()
+    return cfg, dataclasses.replace(cfg.loop_closure, time_thres=SYS_LAP_S / 3.0)
+
+
+def runtime_system(cfg, lc):
+    """A fresh system of the runtime phase on the card."""
+    s = LiliOmSystem(cfg.odometry, cfg.fusion, cfg.spin_features, cfg.livox_features, lc,
+                     cfg.imu_noise, device=DEV)
+    s.deskew_translation = True
+    return s
+
+
+def runtime_decode():
+    return functools.partial(decode_spin, n_rings=SYS_RINGS, n_cols=SYS_COLS)
+
+
+def run_pipelined(log, loop_period, overlap=True, n_scans=RT_SCANS):
+    """``log`` through ``ShardedIngest`` (spawned decode processes) into a
+    lossless ``PipelineRunner`` over its first ``n_scans`` scans, the IMU
+    fed as it is read, closures every ``loop_period`` s of the wall clock.
+    Returns (the system, the runner, the seconds, the metrics report)."""
+    s = runtime_system(*runtime_config())
+    runner = PipelineRunner(s, overlap=overlap, drop_when_full=False,
+                            loop_period_s=loop_period, scan_period=0.1)
+    check(isinstance(runner._seq, native.Sequencer)
+          and isinstance(runner._imu_ring, native.Ring),
+          f"runtime: the runner's sequencer {type(runner._seq).__name__} and IMU ring "
+          f"{type(runner._imu_ring).__name__} are not the native ones")
+    runner.start()
+    ingest = ShardedIngest(runner, runtime_decode(), n_hosts=RT_INGEST_HOSTS, processes=True)
+    t1 = time.perf_counter()
+    runner.n_imu_fed = fed = 0
+    try:
+        for r in read_dataset(log):
+            if isinstance(r, ImuRecord):
+                runner.feed_imu(np.array([r.stamp]), r.acc[None], r.gyr[None])
+                runner.n_imu_fed += 1
+            elif fed < n_scans:
+                ingest.feed_raw(r, r.stamp)
+                fed += 1
+        ingest.close()
+    finally:
+        runner.stop(drain=True)
+    sync()
+    return s, runner, time.perf_counter() - t1, s.metrics.report()
+
+
+def runtime_closure_run(log: str):
+    """The runtime phase's closure run, in a process of its own beside the
+    phase's other runs: ``log`` through the overlapped runner with the loop
+    thread on (every ``RT_LOOP_PERIOD_S`` s), the launch counts set to 0
+    just before and read just after: every scan processed, at least one
+    loop closed, the keyframe RMSE, the map exported by the native PCD
+    writer with ``write_pcd``'s bytes, read back and on the world's
+    surfaces. Returns its facts."""
+    (lcs, lc_runner, lc_s, lc_rep), *c = counted(lambda: run_pipelined(log, RT_LOOP_PERIOD_S))
+    check_counts("runtime", "closure run", *c)
+    check_runtime_features("closure run", lcs)
+    check(lc_runner.n_processed == RT_SCANS,
+          f"runtime: the closure run took {lc_runner.n_processed} of {RT_SCANS} scans")
+    traj, _ = lap_trajectory()
+    t0w, q0w = pose_at(traj, 0.0, device=DEV)
+    kf_err = keyframe_errors(lcs, traj, t0w, q0w)
+    rmse = float(torch.sqrt(torch.mean(kf_err ** 2)))
+    tmp = os.path.dirname(log)
+    pcd, plain_pcd = os.path.join(tmp, "map.pcd"), os.path.join(tmp, "map_plain.pcd")
+    n_map = lcs.export_map(pcd)
+    write_pcd(plain_pcd, lcs.build_global_map())
+    with open(pcd, "rb") as f, open(plain_pcd, "rb") as g:
+        pcd_bytes, plain_bytes = f.read(), g.read()
+    same = pcd_bytes == plain_bytes
+    print(f"[runtime] exported map: {len(pcd_bytes)} bytes by the native writer, "
+          f"{len(plain_bytes)} by write_pcd, {'equal' if same else 'DIFFERENT'}")
+    check(same, "runtime: the native PCD differs from write_pcd's")
+    pts = torch.as_tensor(read_pcd(pcd).copy(), dtype=torch.float64, device=DEV)
+    check(pts.shape == (n_map, 3) and n_map > 0, f"runtime: the PCD holds {tuple(pts.shape)}")
+    dist = torch.sort(surface_distance(make_room_world(device=DEV),
+                                       quat_rotate(q0w[None], pts) + t0w[None])).values
+    map_p50 = float(dist[len(dist) // 2])
+    print(f"[runtime] closure run (in a process of its own): {lc_runner.n_processed} scans, "
+          f"{len(lcs.kf_stamps)} keyframes, {lc_runner.loop_closures} closures (rejects "
+          f"{lcs.lc_rejects}), keyframe RMSE {rmse:.4f} m (max {float(kf_err.max()):.4f}); "
+          f"exported map {n_map} points, median distance to the world's surfaces "
+          f"{map_p50:.4f} m")
+    print("[runtime] closure run stage metrics:\n" + lcs.metrics.pretty())
+    check(lc_runner.loop_closures >= 1 and int(lcs.graph.n_loops) >= 1,
+          f"runtime: the loop thread closed {lc_runner.loop_closures} loops "
+          f"({int(lcs.graph.n_loops)} loop factors; rejects {lcs.lc_rejects})")
+    check(rmse <= KF_RMSE_TOL_M, f"runtime: keyframe RMSE {rmse:.4f} m")
+    check(map_p50 <= SUBMAP_SURF_TOL_M, f"runtime: the map lies {map_p50:.4f} m off the world")
+    return {"seconds": lc_s, "report": lc_rep, "closures": lc_runner.loop_closures,
+            "lc_rejects": lcs.lc_rejects, "kf_rmse": rmse, "n_kf": len(lcs.kf_stamps),
+            "map_points": n_map, "map_surf_p50": map_p50}
+
+
 def runtime_phase(tmp: str, profile: bool = False):
     """The runtime entry points on the first ``RT_SCANS`` scans of the golden
     lap at the full ``fr_iosb_rot`` width, the pruned switch unset: the lap
@@ -1263,15 +1482,14 @@ def runtime_phase(tmp: str, profile: bool = False):
     for byte); a direct run from ``read_dataset`` (a checkpoint after
     ``RT_SAVE_AT`` scans); the same log through ``ShardedIngest`` (spawned
     decode processes) into a serial ``PipelineRunner`` over the first
-    ``RT_SAVE_AT`` scans and an overlapped one over all, the loop thread off
+    ``RT_SAVE_AT`` scans and an overlapped one over as many, the loop thread off
     (the native sequencer and IMU ring); the
-    checkpoint resumed in a fresh system; the pipeline again with the loop
-    thread on, and its map exported (native PCD writer, compared with
-    ``write_pcd``'s bytes) and read back. Each run with the launch counts
-    set to 0 just before and read just after. With ``profile``, one more
-    direct and one more pipeline run under the profiler."""
-    cfg = system_config()
-    lc = dataclasses.replace(cfg.loop_closure, time_thres=SYS_LAP_S / 3.0)
+    checkpoint resumed in a fresh system; meanwhile, in a process of its
+    own, the pipeline again with the loop thread on, and its map exported
+    (:func:`runtime_closure_run`). Each run with the launch counts set to
+    0 just before and read just after. With ``profile``, one more direct
+    and one more pipeline run under the profiler."""
+    cfg, lc = runtime_config()
     t0 = time.perf_counter()
     scans, imu, traj, _, _ = sim_lap(cfg, RT_SCANS)
     log, ckpt = os.path.join(tmp, "lap.lom"), os.path.join(tmp, "ckpt")
@@ -1286,6 +1504,7 @@ def runtime_phase(tmp: str, profile: bool = False):
           f"{digests[0][:16]} / {digests[1][:16]} ({write_s:.2f} s for both)")
     check(digests[0] == digests[1], "runtime: the native and the plain log writers differ")
     os.remove(plain_copy)
+    closure_child = start_child("runtime_closure", tmp, log)
     print(f"[runtime] cuts: the first {RT_SCANS} scans of the system lap "
           f"({SYS_RINGS}x{SYS_COLS}, "
           f"{os.path.getsize(log) / 2 ** 20:.1f} MiB of log; {moved} returns' times moved by "
@@ -1293,16 +1512,10 @@ def runtime_phase(tmp: str, profile: bool = False):
           f"{lc.time_thres:.2f} s "
           f"as the system phase; checkpoint after {RT_SAVE_AT}; sim and log "
           f"{time.perf_counter() - t0:.2f} s")
-    decode = functools.partial(decode_spin, n_rings=SYS_RINGS, n_cols=SYS_COLS)
-
-    def new_system():
-        s = LiliOmSystem(cfg.odometry, cfg.fusion, cfg.spin_features, cfg.livox_features, lc,
-                         cfg.imu_noise, device=DEV)
-        s.deskew_translation = True
-        return s
+    decode = runtime_decode()
 
     def direct():
-        s, dec_ms, save_s = new_system(), [], 0.0
+        s, dec_ms, save_s = runtime_system(cfg, lc), [], 0.0
         t1 = time.perf_counter()
         for r in read_dataset(log):
             if isinstance(r, ImuRecord):
@@ -1320,32 +1533,6 @@ def runtime_phase(tmp: str, profile: bool = False):
         sync()
         return s, time.perf_counter() - t1 - save_s, dec_ms, s.metrics.report()
 
-    def pipelined(loop_period, overlap=True, n_scans=RT_SCANS):
-        s = new_system()
-        runner = PipelineRunner(s, overlap=overlap, drop_when_full=False,
-                                loop_period_s=loop_period, scan_period=0.1)
-        check(isinstance(runner._seq, native.Sequencer)
-              and isinstance(runner._imu_ring, native.Ring),
-              f"runtime: the runner's sequencer {type(runner._seq).__name__} and IMU ring "
-              f"{type(runner._imu_ring).__name__} are not the native ones")
-        runner.start()
-        ingest = ShardedIngest(runner, decode, n_hosts=RT_INGEST_HOSTS, processes=True)
-        t1 = time.perf_counter()
-        runner.n_imu_fed = fed = 0
-        try:
-            for r in read_dataset(log):
-                if isinstance(r, ImuRecord):
-                    runner.feed_imu(np.array([r.stamp]), r.acc[None], r.gyr[None])
-                    runner.n_imu_fed += 1
-                elif fed < n_scans:
-                    ingest.feed_raw(r, r.stamp)
-                    fed += 1
-            ingest.close()
-        finally:
-            runner.stop(drain=True)
-        sync()
-        return s, runner, time.perf_counter() - t1, s.metrics.report()
-
     def check_native_runner(what, runner):
         print(f"[runtime] {what}: sequencer {type(runner._seq).__module__}."
               f"{type(runner._seq).__name__}, IMU ring {type(runner._imu_ring).__name__}; "
@@ -1357,7 +1544,7 @@ def runtime_phase(tmp: str, profile: bool = False):
               f"{runner.n_imu_fed} samples")
 
     def resumed():
-        s = new_system()
+        s = runtime_system(cfg, lc)
         load_system(ckpt, s)
         recs = [r for r in read_dataset(log) if isinstance(r, ScanRecord)]
         for r in recs[RT_SAVE_AT:]:
@@ -1383,71 +1570,61 @@ def runtime_phase(tmp: str, profile: bool = False):
     # the serial runner (run_bag's mode on the card) over the first
     # RT_SAVE_AT scans, against the direct run's checkpoint there
     (ser, ser_runner, ser_s, ser_rep), *c = counted(
-        lambda: pipelined(1e9, overlap=False, n_scans=RT_SAVE_AT))
+        lambda: run_pipelined(log, 1e9, overlap=False, n_scans=RT_SAVE_AT))
     check_counts("runtime", "serial pipeline run", *c)
     check_native_runner("serial pipeline run", ser_runner)
     check(ser_runner.n_processed == RT_SAVE_AT and ser_runner.n_dropped == 0,
           f"runtime: the serial pipeline took {ser_runner.n_processed} scans, dropped "
           f"{ser_runner.n_dropped}")
-    at_save = new_system()
+    at_save = runtime_system(cfg, lc)
     load_system(ckpt, at_save)
     check_gap(f"serial pipeline run vs direct run at its checkpoint ({RT_SAVE_AT} scans)",
               run_gap(ser, at_save))
-    del ser, at_save
-    (pipe, runner, pipe_s, pipe_rep), *c = counted(lambda: pipelined(1e9))
+    # the overlapped runner over the same scans, against the same checkpoint
+    (pipe, runner, pipe_s, pipe_rep), *c = counted(
+        lambda: run_pipelined(log, 1e9, n_scans=RT_SAVE_AT))
     check_counts("runtime", "pipeline run", *c)
     check_native_runner("pipeline run", runner)
-    check(runner.n_processed == RT_SCANS and runner.n_dropped == 0,
+    check(runner.n_processed == RT_SAVE_AT and runner.n_dropped == 0,
           f"runtime: the pipeline took {runner.n_processed} scans, dropped {runner.n_dropped}")
-    check_gap("pipeline run vs direct run", run_gap(pipe, ref))
+    check_gap(f"pipeline run vs direct run at its checkpoint ({RT_SAVE_AT} scans)",
+              run_gap(pipe, at_save))
     check_runtime_features("pipeline run", pipe)
+    del ser, at_save
     res, *c = counted(resumed)
     check_counts("runtime", "resumed run", *c)
     check_gap(f"resumed after {RT_SAVE_AT} scans vs direct run", run_gap(res, ref))
-    (lcs, lc_runner, lc_s, lc_rep), *c = counted(lambda: pipelined(RT_LOOP_PERIOD_S))
-    check_counts("runtime", "closure run", *c)
-    check_runtime_features("closure run", lcs)
-    check(lc_runner.n_processed == RT_SCANS,
-          f"runtime: the closure run took {lc_runner.n_processed} of {RT_SCANS} scans")
-    t0w, q0w = pose_at(traj, 0.0, device=DEV)
-    kf_err = keyframe_errors(lcs, traj, t0w, q0w)
-    rmse = float(torch.sqrt(torch.mean(kf_err ** 2)))
-    pcd, plain_pcd = os.path.join(tmp, "map.pcd"), os.path.join(tmp, "map_plain.pcd")
-    n_map = lcs.export_map(pcd)
-    write_pcd(plain_pcd, lcs.build_global_map())
-    with open(pcd, "rb") as f, open(plain_pcd, "rb") as g:
-        pcd_bytes, plain_bytes = f.read(), g.read()
-    same = pcd_bytes == plain_bytes
-    print(f"[runtime] exported map: {len(pcd_bytes)} bytes by the native writer, "
-          f"{len(plain_bytes)} by write_pcd, {'equal' if same else 'DIFFERENT'}")
-    check(same, "runtime: the native PCD differs from write_pcd's")
-    pts = torch.as_tensor(read_pcd(pcd), dtype=torch.float64, device=DEV)
-    check(pts.shape == (n_map, 3) and n_map > 0, f"runtime: the PCD holds {tuple(pts.shape)}")
-    dist = torch.sort(surface_distance(make_room_world(device=DEV),
-                                       quat_rotate(q0w[None], pts) + t0w[None])).values
-    map_p50 = float(dist[len(dist) // 2])
+    lc_facts = join_child(closure_child, "runtime_closure", tmp)
     # each report read when its run ended: scans/s from the first scan's
     # start to that run's end
     rep = {"direct": direct_rep, "serial_pipeline": ser_rep, "pipeline": pipe_rep,
-           "closure": lc_rep}
-    facts = {"direct_scans_per_s": RT_SCANS / direct_s, "pipeline_scans_per_s": RT_SCANS / pipe_s,
+           "closure": lc_facts["report"]}
+    facts = {"direct_scans_per_s": RT_SCANS / direct_s,
+             "pipeline_scans_per_s": RT_SAVE_AT / pipe_s,
              "serial_pipeline_scans_per_s": RT_SAVE_AT / ser_s,
              "imu_ring": {"fed": runner.n_imu_fed, "ring": runner.n_imu_ring,
                           "direct": runner.n_imu_direct},
-             "closure_run_scans_per_s": RT_SCANS / lc_s,
+             "closure_run_scans_per_s": RT_SCANS / lc_facts["seconds"],
              "frontend_scans_per_s": {k: v["_throughput"]["scans_per_sec"]
                                       for k, v in rep.items()},
              "backend_p50_ms": {k: v["backend"]["p50_ms"] for k, v in rep.items()},
              "odometry_p50_ms": {k: v["odometry"]["p50_ms"] for k, v in rep.items()},
-             "decode_ms_median": float(np.median(dec_ms)), "closures": lc_runner.loop_closures,
-             "lc_rejects": lcs.lc_rejects, "kf_rmse": rmse, "n_kf": len(lcs.kf_stamps),
-             "map_points": n_map, "map_surf_p50": map_p50}
+             "decode_ms_median": float(np.median(dec_ms)), "closures": lc_facts["closures"],
+             **{k: lc_facts[k] for k in ("lc_rejects", "kf_rmse", "n_kf", "map_points",
+                                         "map_surf_p50")}}
+    if profile:  # the soak's process may still run beside
+        facts["profile"] = {
+            "direct": profile_runtime("serial direct run", direct, direct_s),
+            "pipeline": profile_runtime("overlapped pipeline run",
+                                        lambda: run_pipelined(log, 1e9, n_scans=RT_SAVE_AT),
+                                        pipe_s)}
     fr = facts["frontend_scans_per_s"]
     print(f"[runtime] scans/s over the whole replay (log reading and decoding included, "
           f"the decode pool's start too): serial direct {facts['direct_scans_per_s']:.3f}; "
           f"serial pipeline ({RT_SAVE_AT} scans) {facts['serial_pipeline_scans_per_s']:.3f}; "
           f"overlapped pipeline {facts['pipeline_scans_per_s']:.3f}; with the loop thread "
-          f"{facts['closure_run_scans_per_s']:.3f}. From the first scan to the run's end: "
+          f"{facts['closure_run_scans_per_s']:.3f} (in its own process, beside the others and "
+          f"the soak). From the first scan to the run's end: "
           f"{fr['direct']:.3f} / {fr['serial_pipeline']:.3f} / {fr['pipeline']:.3f} / "
           f"{fr['closure']:.3f}")
     print(f"[runtime] backend p50 ms: direct {facts['backend_p50_ms']['direct']:.3f}, "
@@ -1458,21 +1635,6 @@ def runtime_phase(tmp: str, profile: bool = False):
           f"{facts['odometry_p50_ms']['closure']:.3f} (a sync ends every stage: in the "
           f"overlapped runs it also waits for the other threads' kernels); ingest decode "
           f"(organize_scan) ms median {facts['decode_ms_median']:.3f}")
-    print(f"[runtime] closure run: {lc_runner.n_processed} scans, {facts['n_kf']} keyframes, "
-          f"{lc_runner.loop_closures} closures (rejects {lcs.lc_rejects}), keyframe RMSE "
-          f"{rmse:.4f} m (max {float(kf_err.max()):.4f}); exported map {n_map} points, "
-          f"median distance to the world's surfaces {map_p50:.4f} m")
-    print("[runtime] closure run stage metrics:\n" + lcs.metrics.pretty())
-    if profile:
-        facts["profile"] = {
-            "direct": profile_runtime("serial direct run", direct, direct_s),
-            "pipeline": profile_runtime("overlapped pipeline run", lambda: pipelined(1e9),
-                                        pipe_s)}
-    check(lc_runner.loop_closures >= 1 and int(lcs.graph.n_loops) >= 1,
-          f"runtime: the loop thread closed {lc_runner.loop_closures} loops "
-          f"({int(lcs.graph.n_loops)} loop factors; rejects {lcs.lc_rejects})")
-    check(rmse <= KF_RMSE_TOL_M, f"runtime: keyframe RMSE {rmse:.4f} m")
-    check(map_p50 <= SUBMAP_SURF_TOL_M, f"runtime: the map lies {map_p50:.4f} m off the world")
     return facts
 
 
@@ -1743,12 +1905,12 @@ class GatherSpy(Patch):
         super().__init__(module, "all_gather_cat")
         self.bytes, self.event_ms, self.host_ms = [], [], []
 
-    def __call__(self, mesh, x, dim=0):
+    def __call__(self, mesh, x, dim=0, **kw):
         sync()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         a.record()
-        out = self.orig(mesh, x, dim)
+        out = self.orig(mesh, x, dim, **kw)
         b.record()
         b.synchronize()
         self.host_ms.append(1e3 * (time.perf_counter() - t0))
@@ -1783,7 +1945,7 @@ def mesh_lap(mesh, scans, imu, cfg, lc, record: bool = True):
                         cfg.imu_noise, mesh=mesh, device=None if mesh is not None else DEV)
     sys_.deskew_translation = True
     sys_.push_imu(imu.stamps.cpu().numpy(), imu.accs.cpu().numpy(), imu.gyrs.cpu().numpy())
-    host_ms, fired = [], []
+    host_ms, fired, digest_at = [], [], None
     with (Recorder("knn_counted_cuda", armed=record) as first,
           Recorder("knn_counted_cuda", armed=False) as grown,
           SegRecorder(armed=False) as seg, GatherSpy() as gather,
@@ -1800,6 +1962,8 @@ def mesh_lap(mesh, scans, imu, cfg, lc, record: bool = True):
             host_ms.append(1e3 * (time.perf_counter() - t1))
             if k % LC_EVERY == 0 and k > 0 and sys_.try_loop_closure():
                 fired.append(k)
+            if mesh is not None and k == MC_RUNNER_SCANS - 1:
+                digest_at = sys_.replicated_digest()
         sync()
         counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
     n_kf = len(sys_.kf_stamps)
@@ -1820,7 +1984,61 @@ def mesh_lap(mesh, scans, imu, cfg, lc, record: bool = True):
     if mesh is not None:
         facts["replicated"] = sys_.check_replicated()
         facts["digest"] = sys_.replicated_digest()
+        facts["digest_at_runner_scans"] = digest_at
     return facts
+
+
+def mesh_runner(mesh, scans, imu, cfg, lc, overlap: bool, record: bool = False):
+    """(d): ``PipelineRunner`` over ``LiliOmSystem(mesh=mesh)`` at the whole
+    preset, lossless: the lap's IMU fed up front, then host copies of its
+    first ``MC_RUNNER_SCANS`` scans in order, a closure attempt every
+    ``LC_EVERY`` scans (``loop_period_s`` = ``LC_EVERY`` · 0.1 s), serial or
+    overlapped, with every launch count set to 0 just before and read just
+    after and the plain versions' calls counted. With ``record`` (serial
+    runs), the inputs of each B1 and B4 site's first call from scan
+    ``MC_RECORD_FROM`` on are copied. Returns the run's facts (host
+    copies)."""
+    sys_ = LiliOmSystem(cfg.odometry, cfg.fusion, cfg.spin_features, cfg.livox_features, lc,
+                        cfg.imu_noise, mesh=mesh)
+    sys_.deskew_translation = True
+    host_scans = [tuple(x.cpu().numpy() for x in s) for s in scans[:MC_RUNNER_SCANS]]
+    imu_np = [x.cpu().numpy() for x in (imu.stamps, imu.accs, imu.gyrs)]
+    runner = PipelineRunner(sys_, overlap=overlap, drop_when_full=False,
+                            loop_period_s=LC_EVERY * 0.1, scan_period=0.1)
+    with (Recorder("knn_counted_cuda", armed=False) as grown, SegRecorder(armed=False) as seg,
+          PlainSpy(K, "knn") as p1, PlainSpy(K, "knn_map_plain") as p2,
+          PlainSpy(SG, "segment_sum_sorted_plain") as p3):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        runner.feed_imu(*imu_np)
+        runner.start()
+        try:
+            for k, (img, valid, rel) in enumerate(host_scans):
+                if record and k == MC_RECORD_FROM:
+                    # the feed runs ahead of the workers: arm once the
+                    # runner has processed every scan before this one
+                    while runner.n_processed < k and runner.error is None:
+                        time.sleep(0.002)
+                    grown.armed = seg.armed = True
+                runner.feed_scan(img, valid, rel, k * 0.1)
+        finally:
+            runner.stop(drain=True)
+        sync()
+        secs = time.perf_counter() - t0
+        counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
+    n_kf = len(sys_.kf_stamps)
+    cpu = lambda v: tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in v)  # noqa: E731
+    return {"overlap": overlap, "scans_per_s": len(host_scans) / secs,
+            "n_processed": runner.n_processed, "fired": list(runner.fired_at),
+            "replicated": runner.replicated, "digest": sys_.replicated_digest(),
+            "backend_p50_ms": sys_.metrics.report()["backend"]["p50_ms"],
+            "kf_stamps": list(sys_.kf_stamps), "graph_t": sys_.graph.t[:n_kf].cpu(),
+            "n_loops": int(sys_.graph.n_loops), "lc_rejects": dict(sys_.lc_rejects),
+            "counts": counts, "seg_counts": seg_counts, "plain_calls": p1.n + p2.n + p3.n,
+            "grown": {k: cpu(v) for k, v in grown.seen.items()
+                      if not isinstance(v[1], K.KnnMap)},
+            "seg": {k: cpu(v) for k, v in seg.seen.items()}}
 
 
 def dist_steps(mesh, rec):
@@ -1893,6 +2111,8 @@ def multichip_rank(rank: int, n: int, tmp: str):
         scans = [tuple(x.to(DEV) for x in s) for s in data["scans"]]
         imu = data["imu"]
         facts = mesh_lap(mesh, scans, imu, data["cfg"], data["lc"])
+        facts["runner"] = [mesh_runner(mesh, scans, imu, data["cfg"], data["lc"], overlap=o)
+                           for o in (False, True)]
         q, p, m = (data[k].to(DEV) for k in ("knn_q", "knn_p", "knn_mask"))
         with Recorder("knn_counted_cuda") as rec:
             sync()
@@ -1909,12 +2129,15 @@ def multichip_rank(rank: int, n: int, tmp: str):
         dist.destroy_process_group()
 
 
-def spawn_ranks(n: int, tmp: str):
-    """``multichip_rank`` on ``n`` spawned processes; waits at most
-    ``MC_JOIN_S`` seconds and stops them all then. Returns their facts."""
+def spawn_ranks(n: int, tmp: str, meanwhile):
+    """``multichip_rank`` on ``n`` spawned processes and ``meanwhile()`` in
+    this process while they run; waits at most ``MC_JOIN_S`` seconds and
+    stops them all then. Returns (their facts, what ``meanwhile``
+    returned)."""
     ctx = mp.spawn(multichip_rank, args=(n, tmp), nprocs=n, join=False)
     deadline = time.monotonic() + MC_JOIN_S
     try:
+        got = meanwhile()
         while not ctx.join(timeout=1.0):
             check(time.monotonic() < deadline, f"multichip: the {n} ranks ran over {MC_JOIN_S} s")
     finally:
@@ -1922,7 +2145,8 @@ def spawn_ranks(n: int, tmp: str):
             if proc.is_alive():
                 proc.terminate()
                 proc.join(10)
-    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(n)]
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(n)], got
 
 
 def to_dev(v):
@@ -1975,6 +2199,38 @@ def mesh_rows(phase, f, knn_sites, seg_sites, snapshot):
                                 f["seg_counts"].get(("segred",) + key[2:], 0))
                  for key, v in sorted(seen.items())]
     return rows
+
+
+def check_runner(label, f, knn_sites, seg_sites):
+    """One run of (d): every scan processed, ``check_replicated`` true at
+    ``stop()``, B1 (with its map preparation) at every search site and B4 at
+    both map-shard builds, no B3 and no plain version."""
+    print(f"[multichip] (d) {label}: {f['n_processed']} scans, {len(f['kf_stamps'])} keyframes, "
+          f"{f['scans_per_s']:.3f} scans/s; backend p50 {f['backend_p50_ms']:.3f} ms; closures "
+          f"fired after scans {f['fired']} (loop factors {f['n_loops']}, rejects "
+          f"{f['lc_rejects']}); check_replicated at stop() {f['replicated']}; launches "
+          f"{ {f'{w}:{q}x{p}:k{k}': c for (w, q, p, k), c in sorted(f['counts'].items())} } "
+          f"B4 {sum(f['seg_counts'].values())}; plain calls {f['plain_calls']}")
+    check(f["n_processed"] == MC_RUNNER_SCANS,
+          f"multichip (d) {label}: {f['n_processed']} of {MC_RUNNER_SCANS} scans processed")
+    check(f["replicated"] is True, f"multichip (d) {label}: check_replicated failed at stop()")
+    check_mesh_counts(f"(d) {label}", f, knn_sites, seg_sites, MC_RUNNER_SCANS)
+
+
+def check_overlapped(label, over, serial):
+    """(d): the overlapped runner against the serial one on the same world:
+    the same keyframe stamps and fired scans, keyframes within
+    ``MC_SHARD_TOL_M`` (its frontend runs ahead of its backend, so a
+    closure's correction reaches the odometry at another scan)."""
+    check(over["kf_stamps"] == serial["kf_stamps"],
+          f"multichip (d) {label}: keyframes differ from the serial runner's")
+    check(over["fired"] == serial["fired"] and over["fired"],
+          f"multichip (d) {label}: fired after {over['fired']}, serially {serial['fired']}")
+    gap = float(torch.linalg.norm(over["graph_t"] - serial["graph_t"], dim=1).max())
+    print(f"[multichip] (d) {label} vs the serial runner: the same keyframe stamps and fired "
+          f"scans, keyframes up to {gap:.4e} m apart")
+    check(gap < MC_SHARD_TOL_M, f"multichip (d) {label}: {gap:.4f} m from the serial runner")
+    return gap
 
 
 def replay_gap(a, b):
@@ -2055,17 +2311,64 @@ def multichip_phase(tmp: str):
     rmse = lambda f: float(torch.sqrt(torch.mean(  # noqa: E731
         graph_errors(f["graph_t"], f["kf_stamps"], traj, t0w, q0w) ** 2)))
 
-    # (a) NCCL at world size 1, then the single-card references
-    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_rendezvous",
-                            world_size=1, rank=0)
-    try:
-        a = mesh_lap(make_mesh(1, axis="kf"), scans, imu, cfg, lc)
-    finally:
-        dist.destroy_process_group()
-    batch = mesh_lap(None, scans, imu, dataclasses.replace(
-        cfg, fusion=cfg.fusion._replace(incremental_map=False)), lc, record=False)
+    # the single-card incremental run, whose keyframes (c) replays here and
+    # on (b)'s ranks; (a) and the batch-map reference run below, beside them
     with FusionSpy(record=True) as fspy:
         inc = mesh_lap(None, scans, imu, cfg, lc, record=False)
+
+    # (c) the incremental run's keyframes, replayed below
+    frec = {"first": fspy.first, "inputs": fspy.inputs}
+    fcfg = frec["first"][1]
+    n_solved = sum(not w for _, w in frec["inputs"])
+
+    def world1():
+        """(a) NCCL at world size 1 and the single-card batch-map reference;
+        (d1), (d2): the runner over NCCL at world size 1; (c) the keyframes
+        replayed through fusion_step and through the query-sharded fusion
+        at world size 1. Run in this process while (b)'s ranks run."""
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_rendezvous",
+                                world_size=1, rank=0)
+        try:
+            a = mesh_lap(make_mesh(1, axis="kf"), scans, imu, cfg, lc)
+        finally:
+            dist.destroy_process_group()
+        batch = mesh_lap(None, scans, imu, dataclasses.replace(
+            cfg, fusion=cfg.fusion._replace(incremental_map=False)), lc, record=False)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_rendezvous_d",
+                                world_size=1, rank=0)
+        try:
+            mesh1 = make_mesh(1, axis="kf")
+            d1 = mesh_runner(mesh1, scans, imu, cfg, lc, overlap=False, record=True)
+            d2 = mesh_runner(mesh1, scans, imu, cfg, lc, overlap=True)
+        finally:
+            dist.destroy_process_group()
+        c_single = fusion_replay(single_steps(frec), frec)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_rendezvous_c",
+                                world_size=1, rank=0)
+        try:
+            c_n1 = fusion_replay(dist_steps(make_mesh(1, axis="kf"), frec), frec)
+        finally:
+            dist.destroy_process_group()
+        return a, batch, d1, d2, c_single, c_n1
+
+    # (b) two gloo ranks on the card
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    box = torch.tensor([60.0, 60.0, 8.0], device=DEV)
+    knn_p = torch.rand((MC_KNN_P, 3), generator=gen, device=DEV) * box - box / 2
+    knn_q = knn_p[torch.randint(0, MC_KNN_P, (MC_KNN_Q,), generator=gen, device=DEV)] \
+        + 0.2 * torch.randn((MC_KNN_Q, 3), generator=gen, device=DEV)
+    knn_mask = torch.arange(MC_KNN_P, device=DEV) % 3 != 0
+    knn_mask[MC_KNN_P // MC_RANKS:] = False  # every block but the first's: all invalid
+    torch.save({"scans": [tuple(x.cpu() for x in s) for s in scans], "imu": imu.__class__(
+        *(x.cpu() for x in imu)), "cfg": cfg, "lc": lc, "knn_q": knn_q.cpu(),
+        "knn_p": knn_p.cpu(), "knn_mask": knn_mask.cpu(), "fusion_rec": frec},
+        os.path.join(tmp, "lap.pt"))
+    t0 = time.perf_counter()
+    ranks, (a, batch, d1, d2, c_single, c_n1) = spawn_ranks(MC_RANKS, tmp, world1)
+    del scans
+    print(f"[multichip] (b) {MC_RANKS} ranks spawned and run in {time.perf_counter() - t0:.2f} s, "
+          f"(a), the batch-map reference, (d1), (d2) and (c)'s world-1 replays in this process "
+          f"meanwhile")
     print_lap("(a) NCCL, world size 1", a)
     print_lap("single card, incremental_map=False", batch)
     print_lap("single card, incremental maps (default)", inc)
@@ -2087,18 +2390,16 @@ def multichip_phase(tmp: str):
     check(ra <= KF_RMSE_TOL_M and rinc <= KF_RMSE_TOL_M,
           f"multichip: keyframe RMSE (a) {ra:.4f} m, incremental {rinc:.4f} m")
 
-    # (c) the incremental run's keyframes replayed through fusion_step and
-    # through the query-sharded fusion over NCCL at world size 1
-    frec = {"first": fspy.first, "inputs": fspy.inputs}
-    fcfg = frec["first"][1]
-    n_solved = sum(not w for _, w in frec["inputs"])
-    c_single = fusion_replay(single_steps(frec), frec)
-    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_rendezvous_c",
-                            world_size=1, rank=0)
-    try:
-        c_n1 = fusion_replay(dist_steps(make_mesh(1, axis="kf"), frec), frec)
-    finally:
-        dist.destroy_process_group()
+    # (d1), (d2): the runner over NCCL at world size 1
+    check_runner("(d1) NCCL world size 1, serial runner", d1, knn1, seg1)
+    check(d1["digest"] == a["digest_at_runner_scans"],
+          f"multichip (d1): the serial runner's digest after {MC_RUNNER_SCANS} scans differs "
+          f"from (a)'s")
+    print(f"[multichip] (d1) replicated-state digest {d1['digest'][:16]}, (a)'s after scan "
+          f"{MC_RUNNER_SCANS - 1} {a['digest_at_runner_scans'][:16]}: equal")
+    check_runner("(d2) NCCL world size 1, overlapped runner", d2, knn1, seg1)
+    d2_gap = check_overlapped("(d2)", d2, d1)
+    # (c) at world size 1
     sites1 = {(fcfg.window * fcfg.kf_surf_cap, fcfg.map_surf_cap): "fusion_surf",
               (fcfg.window * fcfg.kf_edge_cap, fcfg.map_edge_cap): "fusion_edge"}
     print(f"[multichip] (c) cuts: the {len(frec['inputs'])} keyframes of the single-card "
@@ -2106,23 +2407,6 @@ def multichip_phase(tmp: str):
           f"corrections (rebuild off), the pruned switch unset")
     check_replay("fusion_step on the card", c_single, None, sites1, n_solved)
     check_replay("make_distributed_fusion, NCCL world size 1", c_n1, c_single, sites1, n_solved)
-
-    # (b) two gloo ranks on the card
-    gen = torch.Generator(device=DEV).manual_seed(1)
-    box = torch.tensor([60.0, 60.0, 8.0], device=DEV)
-    knn_p = torch.rand((MC_KNN_P, 3), generator=gen, device=DEV) * box - box / 2
-    knn_q = knn_p[torch.randint(0, MC_KNN_P, (MC_KNN_Q,), generator=gen, device=DEV)] \
-        + 0.2 * torch.randn((MC_KNN_Q, 3), generator=gen, device=DEV)
-    knn_mask = torch.arange(MC_KNN_P, device=DEV) % 3 != 0
-    knn_mask[MC_KNN_P // MC_RANKS:] = False  # every block but the first's: all invalid
-    torch.save({"scans": [tuple(x.cpu() for x in s) for s in scans], "imu": imu.__class__(
-        *(x.cpu() for x in imu)), "cfg": cfg, "lc": lc, "knn_q": knn_q.cpu(),
-        "knn_p": knn_p.cpu(), "knn_mask": knn_mask.cpu(), "fusion_rec": frec},
-        os.path.join(tmp, "lap.pt"))
-    del scans
-    t0 = time.perf_counter()
-    ranks = spawn_ranks(MC_RANKS, tmp)
-    print(f"[multichip] (b) {MC_RANKS} ranks spawned and run in {time.perf_counter() - t0:.2f} s")
     knn2, seg2 = mesh_sites(cfg, MC_RANKS)
     for r, f in enumerate(ranks):
         print_lap(f"(b) gloo rank {r} of {MC_RANKS}", f)
@@ -2143,6 +2427,23 @@ def multichip_phase(tmp: str):
           f"two ranks' keyframes deduplicate per rank); keyframe RMSE (b) {rmse(b):.6f} m")
     check(shard_gap < MC_SHARD_TOL_M, f"multichip (b): {shard_gap:.4f} m from (a)")
 
+    # (d3): the serial and the overlapped runner on (b)'s ranks
+    d3_gap = []
+    for r, f in enumerate(ranks):
+        ser, over = f["runner"]
+        check_runner(f"(d3) gloo rank {r} of {MC_RANKS}, serial runner", ser, knn2, seg2)
+        check(ser["digest"] == f["digest_at_runner_scans"],
+              f"multichip (d3): rank {r}'s serial runner differs from (b) after "
+              f"{MC_RUNNER_SCANS} scans")
+        check_runner(f"(d3) gloo rank {r} of {MC_RANKS}, overlapped runner", over, knn2, seg2)
+        d3_gap.append(check_overlapped(f"(d3) rank {r}", over, ser))
+    for i, name in enumerate(("serial", "overlapped")):
+        digests = [f["runner"][i]["digest"] for f in ranks]
+        print(f"[multichip] (d3) {name} runner: replicated-state digests "
+              f"{[d[:16] for d in digests]}" + (f", the serial one equal to (b)'s after scan "
+                                                f"{MC_RUNNER_SCANS - 1}" if i == 0 else ""))
+        check(len(set(digests)) == 1, f"multichip (d3): the {name} runner's digests differ")
+
     # sharded_knn with an all-invalid block against the plain search
     d_ref, i_ref = K.knn(knn_q, knn_p, k=5, p_mask=knn_mask)
     rows = []
@@ -2160,6 +2461,7 @@ def multichip_phase(tmp: str):
     # the kernels at the mesh sites: world 1's grown maps; rank 0's grown
     # maps; rank 1's first calls (its map shards empty: zero walk bounds)
     rows += mesh_rows("multichip_n1_", a, knn1, seg1, "grown")
+    rows += mesh_rows("multichip_d1_", d1, knn1, seg1, "grown")
     rows += mesh_rows("multichip_n2_r0_", ranks[0], knn2, seg2, "grown")
     rows += mesh_rows("multichip_n2_r1_", ranks[1], knn2, seg2, "first")
     zero = [x for x in rows if x["name"].startswith("knn_counted[") and x["valid"][1] == 0]
@@ -2199,6 +2501,15 @@ def multichip_phase(tmp: str):
                              ("single_incremental", inc), ("gloo_rank0", ranks[0]),
                              ("gloo_rank1", ranks[1]))}
     facts["shard_gap_m"], facts["n1_bit_equal"] = shard_gap, equal
+    facts["runner"] = {
+        name: {k: f[k] for k in ("scans_per_s", "backend_p50_ms", "fired", "n_loops",
+                                 "replicated", "digest")}
+        for name, f in (("d1_nccl_world1_serial", d1), ("d2_nccl_world1_overlapped", d2),
+                        ("d3_gloo_rank0_serial", ranks[0]["runner"][0]),
+                        ("d3_gloo_rank0_overlapped", ranks[0]["runner"][1]),
+                        ("d3_gloo_rank1_serial", ranks[1]["runner"][0]),
+                        ("d3_gloo_rank1_overlapped", ranks[1]["runner"][1]))}
+    facts["runner_gap_m"] = {"d2": d2_gap, "d3": d3_gap}
     facts["dist_fusion"] = {
         name: {"step_ms": f["ms"], "gather_bytes": f["gather"][0][:1],
                "gather_event_ms": f["gather"][1], "gather_host_ms": f["gather"][2],
@@ -2210,8 +2521,51 @@ def multichip_phase(tmp: str):
 
 
 # ---------------------------------------------------------------------------
+# the soak: apps/soak_long_run.py
+# ---------------------------------------------------------------------------
+
+
+def soak_phase():
+    """``apps/soak_long_run.main([SOAK_KF, "--spill", "--speed-up",
+    SOAK_SPEED_UP])`` on the card, in a process of its own beside the
+    runtime phase (:func:`start_child`), every launch count set to 0 just
+    before and read just after: it must return 0 (keyframe latency flat,
+    graph solve under 1 s, resident archives bounded); its report printed
+    line by line, B1 and B4 launched, no B3 and no plain version. Returns
+    its facts."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc, counts, seg_counts, plain = counted(lambda: soak_long_run.main(
+                [str(SOAK_KF), "--spill", "--speed-up", str(SOAK_SPEED_UP)]))
+    finally:
+        lines = [x for x in buf.getvalue().splitlines() if x.strip()]
+        for line in lines:
+            print(f"[soak] {line}")
+    secs = time.perf_counter() - t0
+    b1 = sum(c for (w, *_), c in counts.items() if w == "knn_counted")
+    prep = sum(c for (w, *_), c in counts.items() if w == "knn_map")
+    print(f"[soak] {SOAK_KF} keyframes with --spill --speed-up {SOAK_SPEED_UP} in {secs:.1f} s "
+          f"(in its own process, beside [runtime]'s runs), exit code {rc}; launches "
+          f"B1 {b1} (map preparations {prep}) "
+          f"{ {f'{w}:{q}x{p}:k{k}': c for (w, q, p, k), c in sorted(counts.items())} }, "
+          f"B4 {sum(seg_counts.values())}; plain calls {plain}")
+    check(rc == 0, f"soak: apps/soak_long_run returned {rc}")
+    check(b1 > 0 and prep > 0 and sum(seg_counts.values()) > 0,
+          "soak: B1 with its map preparation and B4 did not all launch")
+    check(not any(w in ("knn_pruned", "knn_dense") for w, *_ in counts),
+          "soak: B2 or B3 launched")
+    check(plain == 0, f"soak: a plain version ran {plain} times")
+    return {"seconds": secs, "report": lines, "b1": b1, "b4": sum(seg_counts.values())}
+
+
+CHILD_RUNS = {"soak": soak_phase, "runtime_closure": runtime_closure_run, "livox": livox_run}
+
+
+# ---------------------------------------------------------------------------
 # 12. evaluate: the golden-loop table, aggressive motion, the run export, the
-# live viewer, a profiler trace and the hash grid
+# live viewer, a profiler trace, the hash grid and the backend diagnostic
 # ---------------------------------------------------------------------------
 
 
@@ -2244,15 +2598,17 @@ def evaluate_rank(i: int, tmp: str, out: str | None):
         aggressive_rank(AG_PRESETS[i - n], tmp)
 
 
-def run_evaluate_ranks(tmp, out):
-    """(a) and (b): ``evaluate_rank`` for each run, spawned at once; waits
-    at most ``MC_JOIN_S`` seconds and stops them all then. Returns the wall
-    time."""
+def run_evaluate_ranks(tmp, out, meanwhile=None):
+    """(a) and (b): ``evaluate_rank`` for each run, spawned at once, and
+    ``meanwhile()`` in this process while they run; waits at most
+    ``MC_JOIN_S`` seconds and stops them all then. Returns (the wall time,
+    what ``meanwhile`` returned)."""
     n = len(evaluate_presets.DEFAULT_PRESETS) + len(AG_PRESETS)
     t0 = time.perf_counter()
     ctx = mp.spawn(evaluate_rank, args=(tmp, out), nprocs=n, join=False)
     deadline = time.monotonic() + MC_JOIN_S
     try:
+        got = meanwhile() if meanwhile is not None else None
         while not ctx.join(timeout=1.0):
             check(time.monotonic() < deadline, f"evaluate: the runs ran over {MC_JOIN_S} s")
     finally:
@@ -2260,7 +2616,29 @@ def run_evaluate_ranks(tmp, out):
             if proc.is_alive():
                 proc.terminate()
                 proc.join(10)
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, got
+
+
+def diag_run():
+    """(h) ``apps/diag_backend.run`` over ``DIAG_FRAMES`` frames on the card,
+    every launch count set to 0 just before and read just after: both ATEs
+    finite, B1 and B4 launched, no plain version. Returns its facts."""
+    t0 = time.perf_counter()
+    r, counts, seg_counts, plain = counted(lambda: diag_backend.run(
+        DIAG_FRAMES, device=DEV, log=lambda m: print(f"[evaluate] (h) diag_backend {m}")))
+    secs = time.perf_counter() - t0
+    b1 = sum(c for (w, *_), c in counts.items() if w == "knn_counted")
+    fe, be = r["frontend_ate"], r["backend_ate"]
+    print(f"[evaluate] (h) diag_backend, {DIAG_FRAMES} frames, {len(r['kf_frames'])} keyframes "
+          f"in {secs:.1f} s (beside (a) and (b)'s processes): frontend ATE RMSE {fe:.6f} m "
+          f"(max {r['fe_err'].max():.6f}), backend ATE RMSE {be:.6f} m (max "
+          f"{r['be_err'].max():.6f}); launches B1 {b1}, B4 {sum(seg_counts.values())}; plain "
+          f"calls {plain}")
+    check(math.isfinite(fe) and math.isfinite(be), f"diag_backend: ATEs {fe} / {be}")
+    check(b1 > 0 and sum(seg_counts.values()) > 0, "diag_backend: B1 or B4 did not launch")
+    check(plain == 0, f"diag_backend: a plain version ran {plain} times")
+    return {"seconds": secs, "frontend_ate": fe, "backend_ate": be,
+            "keyframes": len(r["kf_frames"]), "traces": len(r["traces"])}
 
 
 def merge_seen(knn_seen, seg_seen, f):
@@ -2596,6 +2974,19 @@ def new_site_rows(known, knn_seen, seg_seen, launches, names):
     return rows
 
 
+def beside(recorders):
+    """What this process runs while (a) and (b)'s processes run, the
+    phase's recorders disarmed: (h) the backend diagnostic. Returns its
+    facts."""
+    for r in recorders:
+        r.armed = False
+    try:
+        return diag_run()
+    finally:
+        for r in recorders:
+            r.armed = True
+
+
 def evaluate_phase(tmp, out, frame, trace_scans, main_inputs, odo_cfg, known_rows):
     """Phase 12 (``out``: ``--out``'s directory or None). Returns (its facts,
     kernel rows at the site shapes that are new on its path)."""
@@ -2613,9 +3004,9 @@ def evaluate_phase(tmp, out, frame, trace_scans, main_inputs, odo_cfg, known_row
         times[step], mark[0] = now - mark[0], now
 
     with Recorder("knn_counted_cuda") as rec, SegRecorder() as seg:
-        wall = run_evaluate_ranks(tmp, out)
+        wall, diag = run_evaluate_ranks(tmp, out, lambda: beside((rec, seg)))
         rows, export = preset_table(tmp, wall, launches, rec.seen, seg.seen)
-        facts = {"table": rows, "export": export}
+        facts = {"table": rows, "export": export, "diag_backend": diag}
         facts.update(aggressive_results(tmp, launches, rec.seen, seg.seen))
         lap("(a)+(b)+(c)")
         facts["live"] = check_live_viewer(tmp, launches, names)
@@ -2748,13 +3139,23 @@ def main(argv=None) -> int:
                               (qs.contiguous(), pts, None, None), 0)
 
     phase_done("large map and kernel checks")
-    # 6. system phase, then B3 at each of its call sites
-    sys_, sys_ms, sys_counts, sys_inputs, facts, icp_calls, (sys_seg_counts, sys_seg) = \
-        system_phase()
-    check_system(sys_, sys_ms, sys_counts, facts)
-    check(sum(sys_seg_counts.values()) > 0, "system: B4 did not launch")
-    if args.out:
-        save_icp_attempts(os.path.join(args.out, "icp_attempts.npz"), icp_calls, sys_.lc_cfg)
+    # 6. system phase, and beside it, in a process of its own, 7. the Livox
+    # lap; then B3 at each of the system's call sites and B1 at the Livox
+    # lap's, with the card to themselves
+    tmp = tempfile.mkdtemp(prefix="lili_livox_")
+    try:
+        livox = start_child("livox", tmp)
+        sys_, sys_ms, sys_counts, sys_inputs, facts, icp_calls, (sys_seg_counts, sys_seg) = \
+            system_phase()
+        check_system(sys_, sys_ms, sys_counts, facts)
+        check(sum(sys_seg_counts.values()) > 0, "system: B4 did not launch")
+        if args.out:
+            save_icp_attempts(os.path.join(args.out, "icp_attempts.npz"), icp_calls,
+                              sys_.lc_cfg)
+        lv = join_child(livox, "livox", tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_done("system and livox laps")
     names = site_names(sys_.odo_cfg, sys_.fusion_cfg, sys_.lc_cfg.submap_cap)
     map_rows = []
     for (q, p, k), inputs in sorted(sys_inputs.items()):
@@ -2782,23 +3183,23 @@ def main(argv=None) -> int:
     del sys_, sys_inputs, icp_calls
     torch.cuda.empty_cache()
 
-    phase_done("system")
-    # 7. Livox system phase
-    lvx, lvx_ms, lvx_counts, lvx_seg_counts, lvx_seg, lvx_facts, lvx_inputs = livox_phase()
-    check_livox(lvx, lvx_ms, lvx_counts, lvx_seg_counts, lvx_facts)
-    lvx_rejects = lvx.lc_rejects
-    # B1 at each call site of the Livox lap (ICP runs B1 there, on its
-    # prepared map)
-    lvx_rows = compare_sites("livox_", {("knn_counted",) + key: v for key, v in lvx_inputs.items()},
-                             lvx_counts, site_names(lvx.odo_cfg, lvx.fusion_cfg,
-                                                    lvx.lc_cfg.submap_cap))
+    phase_done("system kernel checks")
+    # 7. the Livox lap's kernel checks: B1 at each of its call sites (ICP
+    # runs B1 there, on its prepared map)
+    lvx_ms, lvx_counts, lvx_seg_counts, lvx_seg, lvx_facts = (
+        lv["host_ms"], lv["counts"], lv["seg_counts"], lv["seg_seen"], lv["facts"])
+    lvx_rejects = lv["lc_rejects"]
+    lvx_rows = compare_sites("livox_", {("knn_counted",) + key: v
+                                        for key, v in lv["inputs"].items()},
+                             lvx_counts, site_names(lv["odo_cfg"], lv["fusion_cfg"],
+                                                    lv["lc_cfg"].submap_cap))
     kernels += lvx_rows
     check({n.split("[livox_")[1].split("_k")[0] for n in (x["name"] for x in lvx_rows)
            if n.startswith("knn_counted[")} >= {"icp", "odometry", "fusion_surf", "fusion_edge"},
           "B1: a call site of the Livox lap was not recorded")
-    del lvx, lvx_inputs
+    del lv
 
-    phase_done("livox")
+    phase_done("livox kernel checks")
     # 8. B4 against its plain version at each call site of the three paths
     for phase, seen, seg_counts in (("main", main_seg, main_seg_counts),
                                     ("system", sys_seg, sys_seg_counts),
@@ -2809,17 +3210,20 @@ def main(argv=None) -> int:
                                           seg_counts.get(("segred",) + key[2:], 0)))
 
     phase_done("B4 checks")
-    # 9. the runtime entry points, the pruned switch unset
+    # 9. the runtime entry points, the pruned switch unset, and beside them
+    # the soak in a process of its own
     prev = os.environ.pop("LILI_OM_KNN_PRUNED", None)
     tmp = tempfile.mkdtemp(prefix="lili_runtime_")
     try:
+        soak = start_child("soak", tmp)
         rt_facts = runtime_phase(tmp, profile=args.profile)
+        soak_facts = join_child(soak, "soak", tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         if prev is not None:
             os.environ["LILI_OM_KNN_PRUNED"] = prev
 
-    phase_done("runtime")
+    phase_done("runtime and soak")
     # 10. the multi-device path, the pruned switch unset
     prev = os.environ.pop("LILI_OM_KNN_PRUNED", None)
     tmp = tempfile.mkdtemp(prefix="lili_multichip_")
@@ -2858,7 +3262,8 @@ def main(argv=None) -> int:
                                   **facts},
                        "livox": {"per_scan_host_ms": lvx_ms, "lc_rejects": lvx_rejects,
                                  **lvx_facts},
-                       "runtime": rt_facts, "multichip": mc_facts, "evaluate": ev_facts,
+                       "runtime": rt_facts, "soak": soak_facts, "multichip": mc_facts,
+                       "evaluate": ev_facts,
                        "phase_s": phase_s,
                        "kernels": kernels + [unmasked]}, f, indent=1)
     print("[timing] wall s per phase (of it in the kernel checks): " + "; ".join(
@@ -2872,4 +3277,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        for ctx in CHILDREN:
+            stop_child(ctx)

@@ -167,6 +167,7 @@ class LiliOmSystem:
         them (:func:`mesh_configs`)."""
         self.mesh = mesh
         self._sharded_odo = self._dist_warm = self._dist_main = self.slot_blocks = None
+        self._closure_group = None  # the mesh's group unless set_process_groups names one
         if mesh is None:
             self.device = resolve_device(device)
         else:
@@ -250,6 +251,20 @@ class LiliOmSystem:
         if not isinstance(a, torch.Tensor):
             a = torch.as_tensor(np.asarray(a))
         return a.to(device=self.device, dtype=dtype or self.dtype)
+
+    def set_process_groups(self, frontend=None, backend=None):
+        """Under a mesh: the process groups the collectives go on, one per
+        thread that issues them (``runtime/pipeline.py``). ``frontend``
+        takes the sharded odometry's all-reduces; ``backend`` the map-shard
+        fusion's gathers and the closure outcome's broadcast. None: the
+        mesh's own group."""
+        from ..parallel.map_fusion import make_map_sharded_system_step
+        from ..parallel.sharded import make_sharded_odometry
+
+        self._dist_warm, self._dist_main, _ = make_map_sharded_system_step(
+            self.mesh, self.fusion_cfg, self.noise, group=backend)
+        self._sharded_odo = make_sharded_odometry(self.mesh, self.odo_cfg, group=frontend)
+        self._closure_group = backend
 
     # ------------------------------------------------------------------
     # IMU stream
@@ -693,7 +708,8 @@ class LiliOmSystem:
             fired = self._attempt_closure(lock)
             out = (fired, _host_tree(self.graph) if fired else None, list(self._loop_pairs),
                    self.last_loop_stamp, dict(self.lc_rejects))
-        fired, graph, pairs, stamp, rejects = broadcast_object(self.mesh, out)
+        fired, graph, pairs, stamp, rejects = broadcast_object(self.mesh, out,
+                                                               group=self._closure_group)
         if self.mesh.get_local_rank() != 0:
             self._loop_pairs, self.last_loop_stamp, self.lc_rejects = pairs, stamp, rejects
             if fired:

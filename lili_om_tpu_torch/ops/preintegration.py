@@ -44,6 +44,10 @@ class ImuNoise(NamedTuple):
             + [self.gyr_n ** 2] * 3 + [self.acc_w ** 2] * 3 + [self.gyr_w ** 2] * 3,
             dtype=dtype, device=device)
 
+    def noise_cov(self, dtype=torch.float32, device=None) -> torch.Tensor:
+        """18×18 diagonal noise covariance (Preintegration.h:48-54)."""
+        return torch.diag(self.noise_diag(dtype, device))
+
 
 class Preint(NamedTuple):
     dp: torch.Tensor  # (3,) position delta in frame i

@@ -67,10 +67,11 @@ def map_sharded_state_shardings(mesh, cfg: FusionConfig) -> list[slice]:
 
 class MapShardedMatch:
     """``fusion_step``'s ``match_fn`` over the mesh (see the module
-    docstring). Returns (surf_batches, edge_batches, enough_map)."""
+    docstring), its gather on ``group`` (default: the mesh's). Returns
+    (surf_batches, edge_batches, enough_map)."""
 
-    def __init__(self, mesh):
-        self.mesh = mesh
+    def __init__(self, mesh, group=None):
+        self.mesh, self.group = mesh, group
 
     def __call__(self, state: FusionState, ts, qs, win_surf_b, win_surf_mask, win_surf_refl,
                  win_edge_b, win_edge_mask, cfg: FusionConfig):
@@ -88,7 +89,7 @@ class MapShardedMatch:
         edge = torch.cat([d2e[..., None], map_e[idxe]], dim=-1)
         counts = torch.stack([smask.sum(), emask.sum()]).to(surf.dtype)
         flat = torch.cat([surf.reshape(-1), edge.reshape(-1), counts])
-        parts = all_gather_cat(self.mesh, flat[None], dim=0)  # (n, ·)
+        parts = all_gather_cat(self.mesh, flat[None], dim=0, group=self.group)  # (n, ·)
         ns, ne = surf.numel(), edge.numel()
         surf_all = parts[:, :ns].reshape((n,) + surf.shape).transpose(0, 1).reshape(
             surf.shape[0], n * k, 5)
@@ -109,15 +110,16 @@ class MapShardedMatch:
         return window_batches(sb_flat, eb_flat, cfg) + ((count_s > 50) & (count_e > 0),)
 
 
-def make_map_sharded_fusion(mesh, cfg: FusionConfig, noise: ImuNoise, warmup: bool = False):
+def make_map_sharded_fusion(mesh, cfg: FusionConfig, noise: ImuNoise, warmup: bool = False,
+                            group=None):
     """``fusion_step`` with the map-sharded match phase on this rank's
-    device. Forces ``incremental_map=False``: the match maps come from the
-    ring shards, so the single-device tables would be dead weight (the
-    state must be made with the same config). Returns (step_fn, each
-    rank's slot block)."""
+    device, its gather on ``group`` (default: the mesh's). Forces
+    ``incremental_map=False``: the match maps come from the ring shards, so
+    the single-device tables would be dead weight (the state must be made
+    with the same config). Returns (step_fn, each rank's slot block)."""
     cfg = cfg._replace(incremental_map=False)
     blocks = map_sharded_state_shardings(mesh, cfg)
-    match, dev = MapShardedMatch(mesh), mesh_device(mesh)
+    match, dev = MapShardedMatch(mesh, group), mesh_device(mesh)
 
     def step(state, surf_pts, surf_mask, surf_refl, edge_pts, edge_mask, imu_dts, imu_accs,
              imu_gyrs, imu_valid):
@@ -128,9 +130,9 @@ def make_map_sharded_fusion(mesh, cfg: FusionConfig, noise: ImuNoise, warmup: bo
     return step, blocks
 
 
-def make_map_sharded_system_step(mesh, cfg: FusionConfig, noise: ImuNoise):
+def make_map_sharded_system_step(mesh, cfg: FusionConfig, noise: ImuNoise, group=None):
     """The warmup and main variants, for ``LiliOmSystem(mesh=…)``:
     (warm, main, each rank's slot block)."""
-    warm, blocks = make_map_sharded_fusion(mesh, cfg, noise, warmup=True)
-    main, _ = make_map_sharded_fusion(mesh, cfg, noise, warmup=False)
+    warm, blocks = make_map_sharded_fusion(mesh, cfg, noise, warmup=True, group=group)
+    main, _ = make_map_sharded_fusion(mesh, cfg, noise, warmup=False, group=group)
     return warm, main, blocks

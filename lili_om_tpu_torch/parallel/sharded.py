@@ -27,7 +27,10 @@ replicates every rank holds whole.
 
 The collectives name their group, and so their backend: NCCL for a mesh on
 the card (one rank per GPU: NCCL refuses two ranks on one device), gloo
-for a mesh on the CPU. Gloo takes CUDA tensors for every collective used
+for a mesh on the CPU. Each takes ``group`` (default: the mesh's own), so
+that two threads of one rank can each issue theirs on a group of its own
+(``runtime/pipeline.py``): collectives on one group must come in the same
+order on every rank. Gloo takes CUDA tensors for every collective used
 here, so two gloo ranks may also share one card (``tools/dist_probe.py``).
 A collective that fails raises; nothing retries it another way.
 """
@@ -81,37 +84,48 @@ def rank_block(n_rows: int, mesh) -> slice:
     return slice(r * b, (r + 1) * b)
 
 
-def all_reduce_sum(mesh, x: torch.Tensor) -> torch.Tensor:
+def _group(mesh, group):
+    return mesh.get_group() if group is None else group
+
+
+def all_reduce_sum(mesh, x: torch.Tensor, group=None) -> torch.Tensor:
     """Σ over the ranks (JAX's ``psum``), a new tensor on every rank."""
     y = x.clone()
-    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.get_group())
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=_group(mesh, group))
     return y
 
 
-def all_gather_cat(mesh, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+def all_gather_cat(mesh, x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order (JAX's
     ``all_gather(..., tiled=True)``)."""
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.size())]
-    dist.all_gather(parts, x, group=mesh.get_group())
+    dist.all_gather(parts, x, group=_group(mesh, group))
     return torch.cat(parts, dim=dim)
 
 
-def broadcast_object(mesh, obj=None, src: int = 0):
+def broadcast_object(mesh, obj=None, src: int = 0, group=None):
     """Rank ``src``'s picklable ``obj`` on every rank (the others pass
     anything). Only the program's own ranks send, so the unpickling reads
     bytes this program wrote."""
+    group = _group(mesh, group)
     box = [obj]
-    dist.broadcast_object_list(box, src=dist.get_global_rank(mesh.get_group(), src),
-                               group=mesh.get_group(), device=mesh_device(mesh))
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, src), group=group,
+                               device=mesh_device(mesh))
     return box[0]
 
 
-def gather_objects(mesh, obj) -> list:
+def gather_objects(mesh, obj, group=None) -> list:
     """Every rank's picklable ``obj``, in rank order, on every rank."""
     out = [None] * mesh.size()
-    dist.all_gather_object(out, obj, group=mesh.get_group())
+    dist.all_gather_object(out, obj, group=_group(mesh, group))
     return out
+
+
+def new_mesh_group(mesh):
+    """A new process group over the mesh's ranks. Every rank of the world
+    must call it, in the same order as its other ``new_group`` calls."""
+    return dist.new_group(ranks=dist.get_process_group_ranks(mesh.get_group()))
 
 
 def merge_topk(d_all: torch.Tensor, k: int) -> torch.Tensor:
@@ -170,19 +184,19 @@ def sharded_scan_match_step(mesh, t, q, scan_pts, scan_mask, map_pts, map_mask,
     return t, q, n_corr.to(torch.int32)
 
 
-def make_sharded_odometry(mesh, cfg):
+def make_sharded_odometry(mesh, cfg, group=None):
     """The query-sharded frontend odometry (see the module docstring):
     ``step(state, surf_pts, surf_mask, n_rounds=None)`` with
     ``odometry_step``'s result contract, equal to it up to the order of the
     ranks' sums. ``cfg.query_cap`` must divide the mesh (``LiliOmSystem``
-    rounds it up)."""
+    rounds it up). Its all-reduces go on ``group`` (default: the mesh's)."""
     from ..models.odometry import _fit_and_gn, _odo_finalize, _odo_prepare
 
     blk = rank_block(cfg.query_cap, mesh)
     dev = mesh_device(mesh)
 
     def reduce(x):
-        return all_reduce_sum(mesh, x)
+        return all_reduce_sum(mesh, x, group)
 
     def step(state, surf_pts, surf_mask, n_rounds: int | None = None):
         surf_pts, surf_mask = surf_pts.to(dev), surf_mask.to(dev)

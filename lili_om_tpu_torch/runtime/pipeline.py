@@ -42,6 +42,45 @@ Differences from the JAX runner:
 * ``warm_graph_solver`` is not started: it warms XLA compiles, which the
   port does not have.
 
+**A system on a mesh** (``LiliOmSystem(mesh=…)``, one process per rank, each
+rank with its own runner fed the same stream) runs under the rules below,
+so that every rank issues the same collectives in the same order and takes
+every decision at the same point of its stream:
+
+* **A process group per thread.** The runner makes two groups over the
+  mesh's ranks at construction (every rank in the same order) and hands
+  them to the system (``set_process_groups``): the frontend's (the sharded
+  odometry's all-reduces, the drop decisions) and the backend's (the
+  map-shard fusion's gathers, the closure outcome's broadcast). Each thread
+  issues its own group's collectives in stream order, so the two threads
+  interleave freely.
+* **Closures are counted in scans.** An attempt is due after every
+  ``round(loop_period_s / scan_period)``-th processed scan (the scan with
+  ordinal k > 0, k a multiple of it), the same scans on every rank; rank 0
+  alone runs the ICP and the graph solve, and every rank takes rank 0's
+  outcome (``LiliOmSystem.try_loop_closure``). Serially the attempt runs on
+  the frontend thread right after its scan, as a direct run that calls
+  ``try_loop_closure`` after those scans does. Overlapped, the frontend
+  puts a marker behind the scan's keyframe on the backend's queue, and
+  every rank's backend makes the attempt at the marker, once it has fused
+  every keyframe up to that scan: rank 0's ICP and graph solve run with the
+  estimator lock released, so the frontend goes on meanwhile, and the other
+  ranks' backends wait for the outcome. There is no loop-closure thread on
+  a mesh.
+* **Drops are rank 0's.** With ``drop_when_full`` the ranks' queues never
+  drop on their own: when the frontend takes a scan, rank 0 decides on its
+  own backlog whether to drop it and broadcasts the decision.
+* **IMU.** A rank's frontend drains whatever its producer has pushed, which
+  differs between ranks, but a scan reads only samples up to its sweep's
+  end (undistortion: (stamp, stamp + period]; preintegration and the local
+  graph: up to the keyframe's stamp), and the sequencer releases a scan
+  only once a sample past its sweep's end was fed, so every rank holds the
+  same samples there.
+* ``stop(drain=True)`` ends with ``check_replicated()`` on every rank
+  (:attr:`PipelineRunner.replicated`). ``stop(drain=False)`` may leave the
+  ranks at different points of the stream: the state is then not held
+  replicated and nothing is checked.
+
 All three workers share PyTorch's current stream on the system's device, so
 device work runs in launch order whichever thread enqueued it. The carried
 states are replaced, never written in place, so a thread reading a state
@@ -55,9 +94,11 @@ from __future__ import annotations
 import queue
 import threading
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
+import torch
 
 from . import native
 
@@ -109,15 +150,31 @@ class PipelineRunner:
         drop under backpressure, the reference's bounded topic queues);
         False = lossless offline replay, ``feed_scan*`` blocks the producer
         instead. ``loop_period_s``: seconds between closure attempts of
-        the loop thread (wall clock). A system on a mesh is refused: the
-        loop thread's wall-clock attempts would fall at different scans on
-        different ranks and leave their collectives unmatched."""
-        if getattr(system, "mesh", None) is not None:
-            raise NotImplementedError(
-                "PipelineRunner does not drive a LiliOmSystem(mesh=...) yet: call "
-                "process_scan and try_loop_closure at the same scans on every rank")
+        the loop thread (wall clock); on a mesh, ``loop_period_s /
+        scan_period`` processed scans (see the module docstring). On a mesh
+        every rank constructs its runner at the same point: this makes two
+        process groups."""
         self.system = system
         self.drop_when_full = drop_when_full
+        # the system's card, its index as the constructing thread resolves
+        # "cuda" (the workers' own current device is theirs to set)
+        dev = getattr(system, "device", None)
+        self._card = None
+        if dev is not None and torch.device(dev).type == "cuda":
+            dev = torch.device(dev)
+            self._card = dev if dev.index is not None else torch.device(
+                "cuda", torch.cuda.current_device())
+        self.mesh = getattr(system, "mesh", None)
+        self.closure_every: Optional[int] = None
+        if self.mesh is not None:
+            from ..parallel.sharded import new_mesh_group
+
+            self._front_group = new_mesh_group(self.mesh)
+            self._back_group = new_mesh_group(self.mesh)
+            system.set_process_groups(frontend=self._front_group, backend=self._back_group)
+            self.closure_every = max(1, round(loop_period_s / scan_period))
+        self.fired_at: list[int] = []  # on a mesh: ordinals of the scans whose attempt fired
+        self.replicated: Optional[bool] = None  # on a mesh: check_replicated() at stop
         self._scan_store: dict[int, tuple] = {}
         self._scan_seq = 0
         self._store_lock = threading.Lock()
@@ -131,7 +188,10 @@ class PipelineRunner:
         self.n_imu_ring = 0  # samples that went through the ring
         self.n_imu_direct = 0  # samples pushed directly (ring full)
         self._scan_period = scan_period
-        self._ready: queue.Queue = queue.Queue(maxsize=queue_size)
+        self._queue_size = queue_size
+        # on a mesh rank 0 decides the drops (_front_work): no queue drops alone
+        self._ready: queue.Queue = queue.Queue(
+            maxsize=0 if self.mesh is not None and drop_when_full else queue_size)
         self._kf_queue: queue.Queue = queue.Queue(maxsize=8)
         self._stop = threading.Event()
         self._front: Optional[threading.Thread] = None
@@ -243,9 +303,11 @@ class PipelineRunner:
             self._back = threading.Thread(target=self._back_work, name="lili-backend",
                                           daemon=True)
             self._back.start()
-        self._loop_thread = threading.Thread(target=self._loop_closure_loop,
-                                             name="lili-loop-closure", daemon=True)
-        self._loop_thread.start()
+        self._loop_thread = None
+        if self.mesh is None:
+            self._loop_thread = threading.Thread(target=self._loop_closure_loop,
+                                                 name="lili-loop-closure", daemon=True)
+            self._loop_thread.start()
 
     def flush(self):
         """End of stream: release every scan still gated in the sequencer, in
@@ -302,6 +364,11 @@ class PipelineRunner:
             raise TimeoutError(f"pipeline did not drain within {timeout} s")
         if running:
             raise TimeoutError(f"pipeline workers still running after {timeout} s: {running}")
+        if self.mesh is not None and drain:
+            self.replicated = self.system.check_replicated()
+            if not self.replicated:
+                warnings.warn("the ranks' replicated states differed at stop(); every rank "
+                              "now holds rank 0's")
 
     def _fail(self, e: BaseException):
         """Keep the first worker exception and stop every worker."""
@@ -323,13 +390,30 @@ class PipelineRunner:
                                  np.ascontiguousarray(batch["gyr"]))
 
     # ---- threads -------------------------------------------------------
+    def _on_device(self) -> bool:
+        """Make the system's card this worker thread's current device (the
+        current device is per thread, and the kernels launch on it).
+        Returns whether the worker may go on."""
+        try:
+            if self._card is not None:
+                torch.cuda.set_device(self._card)
+            return True
+        except BaseException as e:
+            self._fail(e)
+            return False
+
     def _front_work(self):
+        if not self._on_device():
+            return
         while not self._stop.is_set():
             try:
                 kind, payload, stamp = self._ready.get(timeout=0.05)
             except queue.Empty:
                 continue
             try:
+                if self.mesh is not None and self.drop_when_full and self._rank0_drops():
+                    self.n_dropped += 1
+                    continue
                 with self._imu_lock:
                     self._drain_imu_locked()
                 self._front_step(kind, payload, stamp)
@@ -339,42 +423,67 @@ class PipelineRunner:
             finally:
                 self._ready.task_done()
 
+    def _rank0_drops(self) -> bool:
+        """On a mesh: whether the scan just taken drops, on every rank: rank
+        0 drops it when ``queue_size`` scans or more wait behind it."""
+        from ..parallel.sharded import broadcast_object
+
+        return broadcast_object(self.mesh, self._ready.qsize() >= self._queue_size,
+                                group=self._front_group)
+
     def _front_step(self, kind, payload, stamp):
         step = (self.system.process_scan if kind == "spin"
                 else self.system.process_scan_livox)
+        k = self.n_processed
+        due = self.mesh is not None and k > 0 and k % self.closure_every == 0
         if self.overlap:
             _, fc = step(*payload, stamp, defer_backend=True)
             if fc is not None:
-                # bounded handoff: keyframes must not drop (they carry the
-                # map), so backpressure stalls the frontend instead
-                while not self._stop.is_set():
-                    try:
-                        self._kf_queue.put((fc, stamp), timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
+                self._hand_to_backend(("kf", fc, stamp))
+            if due:
+                self._hand_to_backend(("closure", k, None))
         else:
             with self._sys_lock:
                 step(*payload, stamp)
                 if self.system.health_check_and_recover():
                     self.n_recoveries += 1
+            if due and self.system.try_loop_closure(lock=self._sys_lock):
+                self.loop_closures += 1
+                self.fired_at.append(k)
         self.n_processed += 1
 
-    def _back_work(self):
+    def _hand_to_backend(self, item):
+        # bounded handoff: keyframes must not drop (they carry the map), so
+        # backpressure stalls the frontend instead
         while not self._stop.is_set():
             try:
-                fc, stamp = self._kf_queue.get(timeout=0.05)
+                self._kf_queue.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def _back_work(self):
+        if not self._on_device():
+            return
+        while not self._stop.is_set():
+            try:
+                kind, a, b = self._kf_queue.get(timeout=0.05)
             except queue.Empty:
                 continue
             try:
-                with self._sys_lock:
-                    self.system.process_keyframe(fc, stamp)
-                    # elastic recovery (absent in the reference, SURVEY.md
-                    # §5): a NaN'd fusion state is re-seeded from the last
-                    # finite keyframe here on the backend worker
-                    if self.system.health_check_and_recover():
-                        self.n_recoveries += 1
-                self.n_keyframes += 1
+                if kind == "kf":
+                    with self._sys_lock:
+                        self.system.process_keyframe(a, b)
+                        # elastic recovery (absent in the reference,
+                        # SURVEY.md §5): a NaN'd fusion state is re-seeded
+                        # from the last finite keyframe here on the backend
+                        if self.system.health_check_and_recover():
+                            self.n_recoveries += 1
+                    self.n_keyframes += 1
+                elif self.system.try_loop_closure(lock=self._sys_lock):
+                    # on a mesh: the "closure" marker after scan a
+                    self.loop_closures += 1
+                    self.fired_at.append(a)
             except BaseException as e:
                 self._fail(e)
                 return
@@ -385,6 +494,8 @@ class PipelineRunner:
         # the lock is passed in: try_loop_closure holds it for its snapshot
         # and update phases only; the ICP and the graph solve run unlocked,
         # so keyframe fusion never stalls behind a closure
+        if not self._on_device():
+            return
         while not self._stop.wait(self._loop_period):
             try:
                 if self.system.try_loop_closure(lock=self._sys_lock):

@@ -18,7 +18,10 @@ directory of live artifacts:
 the host shows the run live:
 
     viewer = LiveViewer("/tmp/live", system)
-    viewer.serve(8088)   # open http://host:8088/
+    viewer.serve(8088)   # open http://localhost:8088/
+
+It binds loopback unless the caller names another address
+(``serve(8088, host="0.0.0.0")`` serves every interface).
 
 Writes are tmp + rename (readers never see a torn file) and run on the
 thread that publishes the map (the runner's backend thread) while the
@@ -84,9 +87,12 @@ class LiveViewer:
         self._system = system
         system.map_callback = lambda map_pts: self.update(system, map_pts)
 
-    def serve(self, port: int = 8088) -> int:
+    def serve(self, port: int = 8088, host: str = "127.0.0.1") -> int:
         """Serve ``out_dir`` over HTTP in a daemon thread; returns the bound
-        port (0 picks a free one)."""
+        port (0 picks a free one). ``host`` is the address bound: loopback
+        by default, so only this machine reads the run's files; ``""`` or
+        ``"0.0.0.0"`` serves every interface, at the caller's choice (the
+        JAX viewer always binds every interface)."""
         import functools
         import http.server
         import socketserver
@@ -103,7 +109,7 @@ class LiveViewer:
             allow_reuse_address = True  # instance-scoped, not a stdlib mutation
 
         handler = functools.partial(_Quiet, directory=self.out_dir)
-        self._httpd = _Srv(("", port), handler)
+        self._httpd = _Srv((host, port), handler)
         threading.Thread(target=self._httpd.serve_forever,
                          daemon=True).start()
         return self._httpd.server_address[1]

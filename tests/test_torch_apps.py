@@ -22,14 +22,11 @@ import lili_om_tpu.sim.lidar as JL
 import lili_om_tpu.sim.trajectory as JT
 import lili_om_tpu.sim.world as JW
 import lili_om_tpu.utils.config as JC
-import lili_om_tpu_torch.sim.lidar as TL
-import lili_om_tpu_torch.sim.trajectory as TT
-import lili_om_tpu_torch.sim.world as TW
 import lili_om_tpu_torch.utils.config as TC
 from examples.evaluate_presets import run_preset as jax_run_preset
 from lili_om_tpu_torch.apps import evaluate_presets, run_loop_closure, run_pipeline, run_synthetic
 from lili_om_tpu_torch.utils.evaluation import load_tum
-from test_torch_common import CPU, npy, tiny_system
+from test_torch_common import CPU, port_sim_for_jax, tiny_system
 
 N_PRESET = 18  # the first frame count with an RPE@5 value (7 keyframes > delta 5)
 
@@ -46,25 +43,10 @@ def _small(load_config):
     return load
 
 
-def _port_sim_for_jax(monkeypatch):
-    """Serve the JAX harness's simulator calls with the port's simulator,
-    numpy out."""
-    def host_tuple(nt):
-        return type(nt)(*[npy(x) for x in nt])
-
-    monkeypatch.setattr(JW, "make_room_world", lambda: TW.make_room_world(device=CPU))
-    monkeypatch.setattr(JT, "circle_trajectory", TT.circle_trajectory)
-    monkeypatch.setattr(JT, "pose_at", lambda traj, t: tuple(npy(x) for x in TT.pose_at(traj, t)))
-    monkeypatch.setattr(JT, "simulate_imu", lambda *a, **k: host_tuple(TT.simulate_imu(*a, **k)))
-    monkeypatch.setattr(JL, "spinning_pattern",
-                        lambda **k: TL.spinning_pattern(**k, device=CPU))
-    monkeypatch.setattr(JL, "simulate_scan", lambda *a, **k: host_tuple(TL.simulate_scan(*a, **k)))
-
-
 def test_run_preset_matches_jax(monkeypatch, tmp_path):
     for mod in (JC, TC):
         monkeypatch.setattr(mod, "load_config", _small(mod.load_config))
-    _port_sim_for_jax(monkeypatch)
+    port_sim_for_jax(monkeypatch, (JW, JT, JL))
     got = evaluate_presets.run_preset("synthetic", N_PRESET, torch.float64,
                                       tum_dir=str(tmp_path), device=CPU)
     want = jax_run_preset("synthetic", N_PRESET, jnp.float64)

@@ -165,3 +165,30 @@ def tiny_run(n_scans, rings=16, cols=360, period=0.1):
         s.process_scan(npy(sc.pts).reshape(rings, cols, 3), npy(sc.valid).reshape(rings, cols),
                        npy(sc.rel_time).reshape(rings, cols), k * period)
     return s
+
+
+def port_sim_for_jax(monkeypatch, modules):
+    """Serve JAX simulator calls with the port's simulator, numpy out, so
+    both packages see bit-identical scans and IMU samples (the JAX one
+    evaluates its trajectory op by op, ~0.3 s a pose on the CPU).
+    ``modules``: where the JAX caller finds each name (the world, the
+    trajectory and the lidar modules of ``lili_om_tpu.sim``, or a module
+    that imported the names itself)."""
+    import lili_om_tpu_torch.sim.lidar as TL
+    import lili_om_tpu_torch.sim.trajectory as TT
+    import lili_om_tpu_torch.sim.world as TW
+
+    def host_tuple(nt):
+        return type(nt)(*[npy(x) for x in nt])
+
+    serve = {"make_room_world": lambda: TW.make_room_world(device=CPU),
+             "circle_trajectory": lambda *a, **k: TT.circle_trajectory(*a, **k),
+             "pose_at": lambda traj, t: tuple(npy(x) for x in TT.pose_at(traj, t)),
+             "simulate_imu": lambda *a, **k: host_tuple(TT.simulate_imu(*a, **k)),
+             "spinning_pattern": lambda **k: TL.spinning_pattern(**k, device=CPU),
+             "simulate_scan": lambda *a, **k: host_tuple(TL.simulate_scan(*a, **k))}
+    for mod in modules:
+        for name, fn in serve.items():
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, fn)
+

@@ -131,8 +131,9 @@ print(maps.count({str(ROOT / "native")!r}))
 
 
 def _entry_points():
-    from lili_om_tpu_torch.apps import (evaluate_presets, run_bag, run_dataset, run_loop_closure,
-                                        run_pipeline, run_synthetic)
+    from lili_om_tpu_torch.apps import (diag_backend, evaluate_presets, run_bag, run_dataset,
+                                        run_loop_closure, run_pipeline, run_synthetic,
+                                        soak_long_run)
     from lili_om_tpu_torch.frame import Frame, bench_configs, sim_scans
     from lili_om_tpu_torch.models.fusion import fusion_step, init_fusion_state
     from lili_om_tpu_torch.models.odometry import init_state, odometry_step
@@ -169,6 +170,8 @@ def _entry_points():
         "run_synthetic": lambda: run_synthetic.main(["2"]),
         "run_loop_closure": lambda: run_loop_closure.main(["--frames", "2"]),
         "run_pipeline": lambda: run_pipeline.main(["--frames", "3"]),
+        "soak_long_run": lambda: soak_long_run.main(["2", "--spill"]),
+        "diag_backend": lambda: diag_backend.main(["--frames", "2"]),
     }
 
 

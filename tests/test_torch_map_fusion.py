@@ -35,6 +35,16 @@ float64.
   the same configuration, and their graphs agree to 0.05 m. When one rank's
   state is moved, ``check_replicated`` finds it on every rank and every
   rank takes rank 0's state.
+* ``PipelineRunner`` over the mesh system, in the same world: serially
+  with closures off, within 1e-6 m of JAX's mesh system as the direct run
+  is, and equal to the direct run bit for bit; serially with a closure
+  attempt after every scan, equal to the direct run with the same attempts
+  bit for bit (digests, trajectory, graph, the scans that fired);
+  overlapped, equal digests on both ranks, ``check_replicated`` true at
+  ``stop()``, the serial run's keyframe stamps and fired scans, and its
+  keyframes within 0.05 m of the serial run's (the overlapped runner's
+  frontend runs ahead of its backend, so a closure's correction reaches
+  the odometry at another scan).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -216,6 +226,13 @@ def test_mesh_config_rounding_matches_jax():
     assert ts.slot_blocks == [slice(0, 13), slice(13, 26), slice(26, 39), slice(39, 52)]
 
 
+@pytest.fixture(scope="module")
+def jax_mesh_system(ranks, scans):
+    """JAX's mesh system over the first ``N_SCANS`` scans, closures off
+    (the ranks run meanwhile)."""
+    return _run_jax_mesh_system(scans)
+
+
 def _run_jax_mesh_system(scans):
     odo, fus, feat = R.system_configs()
     s = JSystem(odo_cfg=JO(**odo), fusion_cfg=JFu.FusionConfig(**fus), feat_cfg=JS(**feat),
@@ -228,12 +245,9 @@ def _run_jax_mesh_system(scans):
     return s
 
 
-def test_mesh_system_matches_jax_and_single(ranks, scans):
-    port = _port(ranks, "sys_")
-    assert bool(port["replicated"])
+def _same_as_jax_mesh_system(port, js):
     n_kf = len(port["kf_stamps"])
     assert n_kf >= 2
-    js = _run_jax_mesh_system(scans)
     assert port["kf_stamps"].tolist() == js.kf_stamps
     np.testing.assert_allclose(port["trajectory"], np.asarray(js.trajectory), rtol=0.0,
                                atol=SYS_TOL)
@@ -241,6 +255,12 @@ def test_mesh_system_matches_jax_and_single(ranks, scans):
                                atol=SYS_TOL)
     np.testing.assert_allclose(port["graph_q"], np.asarray(js.graph.q[:n_kf]), rtol=0.0,
                                atol=SYS_TOL)
+
+
+def test_mesh_system_matches_jax_and_single(ranks, scans, jax_mesh_system):
+    port = _port(ranks, "sys_")
+    assert bool(port["replicated"])
+    _same_as_jax_mesh_system(port, jax_mesh_system)
     single = R.run_system(R.make_system(), scans, N_SCANS)
     assert single["kf_stamps"].tolist() == port["kf_stamps"].tolist()
     err = np.linalg.norm(single["graph_t"] - port["graph_t"], axis=1)
@@ -267,3 +287,49 @@ def test_check_replicated_repairs_a_diverged_rank(ranks):
         assert bool(r["repair_found"]) and bool(r["repair_after"])
     np.testing.assert_array_equal(out[1]["repair_digest"], out[0]["repair_digest"])
     np.testing.assert_array_equal(out[0]["repair_digest"], out[0]["lc_digest"])
+
+
+def _same_run(a, b, keys=("trajectory", "kf_stamps", "graph_t", "graph_q", "n_loops", "digest")):
+    for k in keys:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_mesh_runner_without_closures_matches_jax_and_direct(ranks, jax_mesh_system):
+    """The serial runner over the mesh system, closures off, the IMU fed
+    between the scans and differently on each rank (rank 0 one batch a
+    scan, just what the sequencer needs; rank 1 three periods ahead, a
+    sample at a time with pauses): every scan processed, equal digests,
+    within ``SYS_TOL`` of JAX's mesh system and bit-equal to the direct run
+    (the IMU pushed up front) on both ranks."""
+    feeds = [int(r["imu_feeds"]) for r in ranks.results()]
+    assert feeds[0] == N_SCANS + 1 < feeds[1], feeds
+    port = _port(ranks, "runner_sys_")
+    assert int(port["n_processed"]) == N_SCANS and bool(port["replicated"])
+    assert port["fired_at"].tolist() == []
+    _same_as_jax_mesh_system(port, jax_mesh_system)
+    _same_run(port, _port(ranks, "sys_"))
+
+
+def test_mesh_runner_serial_closures_match_direct(ranks):
+    """The serial runner with a closure attempt after every scan equals the
+    direct run with an attempt after every scan from the fourth on (the
+    earlier attempts have no mature keyframe) bit for bit, and fires on the
+    same scans."""
+    port, direct = _port(ranks, "runner_lc_serial_"), _port(ranks, "lc_")
+    assert int(port["n_processed"]) == N_LC_SCANS and bool(port["replicated"])
+    direct_fired = [k for k, f in zip(range(3, N_LC_SCANS), direct["fired"]) if f]
+    assert port["fired_at"].tolist() == direct_fired and direct_fired
+    _same_run(port, direct)
+
+
+def test_mesh_runner_overlapped_matches_serial(ranks):
+    """The overlapped runner: equal digests on both ranks (``_port``),
+    ``check_replicated`` true at ``stop()``, the serial runner's keyframe
+    stamps and fired scans, keyframes within ``SHARD_TOL`` of its."""
+    over, serial = _port(ranks, "runner_lc_overlap_"), _port(ranks, "runner_lc_serial_")
+    assert int(over["n_processed"]) == N_LC_SCANS and bool(over["replicated"])
+    assert over["kf_stamps"].tolist() == serial["kf_stamps"].tolist()
+    assert over["fired_at"].tolist() == serial["fired_at"].tolist()
+    assert int(over["n_loops"]) == int(serial["n_loops"]) >= 1
+    err = np.linalg.norm(over["graph_t"] - serial["graph_t"], axis=1)
+    assert err.max() < SHARD_TOL, err

@@ -113,6 +113,23 @@ def test_noise_and_gravity_conventions():
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_noise_cov_matches_jax(dtype):
+    """The 18×18 diagonal covariance, of the default noise and of the
+    fr_iosb preset's: equal bit for bit (both round the same squares to
+    ``dtype``), zero off the diagonal, on the device asked for."""
+    from lili_om_tpu.utils.config import load_config as j_load
+    from lili_om_tpu_torch.utils.config import load_config as t_load
+
+    for jn, tn in ((JN, TN), (j_load("fr_iosb").imu_noise, t_load("fr_iosb").imu_noise)):
+        got = tn.noise_cov(getattr(torch, dtype), device="cpu")
+        want = np.asarray(jn.noise_cov(getattr(jnp, dtype)))
+        assert got.shape == (18, 18) and got.dtype == getattr(torch, dtype)
+        assert got.device.type == "cpu"
+        np.testing.assert_array_equal(npy(got), want)
+        np.testing.assert_array_equal(npy(got), np.diag(npy(tn.noise_diag(getattr(torch, dtype)))))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("n_valid", [32, 25, 0])
 def test_integrate_sequential_matches_jax(dtype, n_valid):
     """The sequential midpoint form against JAX's ``lax.scan`` form, step for

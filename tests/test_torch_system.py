@@ -228,17 +228,54 @@ class _OneRankMesh:
         return 0
 
 
-def test_unported_options_raise():
-    """``mesh`` is ported (tests/test_torch_map_fusion.py). Still refused
-    around it: ``PipelineRunner`` over a mesh system (its wall-clock loop
-    thread would attempt closures at different scans on different ranks)
-    and a ``device`` other than the mesh's."""
+def test_unported_options_raise(tmp_path):
+    """``mesh`` is ported (tests/test_torch_map_fusion.py), and so is
+    ``PipelineRunner`` over a mesh system: on a one-rank gloo world the
+    runner takes the mesh system, gives it its two process groups, counts
+    closures in scans and checks the replicated state at ``stop()``. Still
+    refused: a ``device`` other than the mesh's."""
+    import torch.distributed as dist
+
+    from lili_om_tpu_torch.parallel.sharded import make_mesh
     from lili_om_tpu_torch.runtime.pipeline import PipelineRunner
 
-    with pytest.raises(NotImplementedError):
-        PipelineRunner(TSystem(mesh=_OneRankMesh(), device=CPU))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+                            rank=0)
+    try:
+        sys_ = TSystem(mesh=make_mesh(1, "kf", device=CPU), device=CPU)
+        runner = PipelineRunner(sys_, loop_period_s=1.0, scan_period=0.1)
+        assert runner.mesh is sys_.mesh and runner.closure_every == 10
+        assert sys_._closure_group is runner._back_group is not sys_.mesh.get_group()
+        runner.start()
+        runner.stop(drain=True)
+        assert runner.replicated is True and runner.n_processed == 0
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError):
         TSystem(mesh=_OneRankMesh(), device="cuda")
+
+
+def test_mesh_runner_drops_by_rank0(tmp_path):
+    """On a mesh with ``drop_when_full`` the runner's queue never drops on
+    its own (unbounded): when the frontend takes a scan, rank 0 drops it if
+    ``queue_size`` scans or more wait behind it, and every rank gets that
+    decision (here a one-rank gloo world)."""
+    import torch.distributed as dist
+
+    from lili_om_tpu_torch.parallel.sharded import make_mesh
+    from lili_om_tpu_torch.runtime.pipeline import PipelineRunner
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+                            rank=0)
+    try:
+        runner = PipelineRunner(TSystem(mesh=make_mesh(1, "kf", device=CPU), device=CPU),
+                                queue_size=2, drop_when_full=True)
+        for k in range(4):
+            runner._ready.put_nowait(k)
+        taken = [(runner._ready.get_nowait(), runner._rank0_drops()) for _ in range(4)]
+        assert taken == [(0, True), (1, True), (2, False), (3, False)]
+    finally:
+        dist.destroy_process_group()
 
 
 # --- the Livox variant ------------------------------------------------------

@@ -124,6 +124,58 @@ def test_live_viewer_serves_http(tmp_path, run_pair):
         v.close()
 
 
+def _non_loopback_ipv4():
+    """An IPv4 address of one of this machine's own interfaces other than
+    loopback (read from the interfaces, nothing is sent), or None."""
+    import fcntl
+    import socket
+    import struct
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        for _, name in socket.if_nameindex():
+            try:
+                raw = fcntl.ioctl(s.fileno(), 0x8915,  # SIOCGIFADDR
+                                  struct.pack("256s", name[:15].encode()))
+            except OSError:
+                continue
+            addr = socket.inet_ntoa(raw[20:24])
+            if not addr.startswith("127."):
+                return addr
+    return None
+
+
+def _answers(host, port) -> bool:
+    import socket
+
+    try:
+        socket.create_connection((host, port), timeout=2).close()
+        return True
+    except OSError:
+        return False
+
+
+def test_live_viewer_binds_loopback_by_default(tmp_path):
+    """``serve()`` answers on 127.0.0.1 and refuses a connection to this
+    machine's own non-loopback address; ``host="0.0.0.0"``, the caller's
+    explicit choice, answers there too."""
+    addr = _non_loopback_ipv4()
+    if addr is None:
+        pytest.skip("this machine has no non-loopback IPv4 address to connect to")
+    v = TLV.LiveViewer(str(tmp_path), figure=False)
+    port = v.serve(0)
+    try:
+        assert v._httpd.server_address[0] == "127.0.0.1"
+        assert _answers("127.0.0.1", port)
+        assert not _answers(addr, port)
+    finally:
+        v.close()
+    port = v.serve(0, host="0.0.0.0")
+    try:
+        assert _answers(addr, port) and _answers("127.0.0.1", port)
+    finally:
+        v.close()
+
+
 def test_device_trace_writes_a_trace(tmp_path):
     """On the CPU the trace holds the window's host operations."""
     with device_trace(str(tmp_path / "tr")) as prof:

@@ -7,6 +7,7 @@ never JAX: the tests compare the results with the JAX package in the
 parent."""
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -251,11 +252,64 @@ def run_system(sys_, scans: dict, n: int, closures: bool = False) -> dict:
             "n_loops": _np(sys_.graph.n_loops), "fired": np.asarray(fired, bool)}
 
 
+def run_runner(sys_, scans: dict, n: int, overlap: bool, every: int = 1,
+               imu_lead: Optional[int] = None) -> dict:
+    """The first ``n`` scans through ``PipelineRunner`` (lossless), closure
+    attempts every ``every`` scans (``loop_period_s`` = every · 0.1 s); the
+    run's results as :func:`run_system` gives them, with the scan ordinals
+    whose attempt fired, ``check_replicated`` at ``stop()``, the digest and
+    the number of ``feed_imu`` calls (``imu_feeds``).
+
+    The IMU is fed up front, or with ``imu_lead`` in chunks between the
+    scans: before scan k, the samples through the first one at or past
+    ``imu_lead`` scan periods after its sweep's end (with ``imu_lead`` 0,
+    just what the sequencer needs to release it), fed one sample at a time
+    with a 1 ms pause every 8 samples when ``imu_lead`` is odd and as one
+    batch otherwise, the rest after the last scan."""
+    from lili_om_tpu_torch.runtime.pipeline import PipelineRunner
+
+    period = float(scans["stamp_1"]) - float(scans["stamp_0"])
+    runner = PipelineRunner(sys_, overlap=overlap, drop_when_full=False,
+                            loop_period_s=every * period, scan_period=period)
+    imu = (scans["imu_stamps"], scans["imu_accs"], scans["imu_gyrs"])
+    fed = n_feeds = 0
+
+    def feed_imu_to(end):
+        nonlocal fed, n_feeds
+        step = 1 if imu_lead is not None and imu_lead % 2 else max(end - fed, 1)
+        for i in range(fed, end, step):
+            runner.feed_imu(*(x[i:min(i + step, end)] for x in imu))
+            n_feeds += 1
+            if step == 1 and i % 8 == 7:
+                time.sleep(0.001)
+        fed = max(fed, end)
+
+    if imu_lead is None:
+        feed_imu_to(len(imu[0]))
+    runner.start()
+    for k in range(n):
+        stamp = float(scans[f"stamp_{k}"])
+        if imu_lead is not None:
+            feed_imu_to(int(np.searchsorted(imu[0], stamp + (1 + imu_lead) * period)) + 1)
+        runner.feed_scan(scans[f"img_{k}"], scans[f"valid_{k}"], scans[f"rel_{k}"], stamp)
+    feed_imu_to(len(imu[0]))
+    runner.stop(drain=True)
+    nk = len(sys_.kf_stamps)
+    return {"trajectory": np.asarray(sys_.trajectory), "kf_stamps": np.asarray(sys_.kf_stamps),
+            "graph_t": _np(sys_.graph.t[:nk]), "graph_q": _np(sys_.graph.q[:nk]),
+            "n_loops": _np(sys_.graph.n_loops), "fired_at": np.asarray(runner.fired_at, int),
+            "n_processed": np.int64(runner.n_processed), "replicated": np.bool_(runner.replicated),
+            "digest": np.frombuffer(bytes.fromhex(sys_.replicated_digest()), np.uint8),
+            "imu_feeds": np.int64(n_feeds)}
+
+
 def map_fusion_ranks(mesh, workdir) -> dict:
     """The map-sharded step on the filled ring and the warmup step on a
     fresh state (tests/test_map_fusion.py's cases), then the mesh system
     over the simulated scans, closures off and then on; every rank's
-    replicated-state check and digest."""
+    replicated-state check and digest; then the same systems through
+    ``PipelineRunner``: serial with closures off, serial and overlapped
+    with a closure attempt after every scan."""
     from lili_om_tpu_torch.models.fusion import init_fusion_state
     from lili_om_tpu_torch.ops.preintegration import ImuNoise
     from lili_om_tpu_torch.parallel.map_fusion import make_map_sharded_fusion
@@ -281,6 +335,18 @@ def map_fusion_ranks(mesh, workdir) -> dict:
         res["replicated"] = np.bool_(sys_.check_replicated())
         res["digest"] = np.frombuffer(bytes.fromhex(sys_.replicated_digest()), np.uint8)
         out.update({f"{name}_{k}": v for k, v in res.items()})
+    n_sys, n_lc = int(scans["n_sys"]), int(scans["n"])
+    # closures off, the IMU fed between the scans: rank 0 just what the
+    # sequencer needs, one batch a scan; rank 1 three periods ahead, a
+    # sample at a time with pauses
+    lead = 3 * mesh.get_local_rank()
+    res = run_runner(make_system(mesh), scans, n_sys, overlap=False, imu_lead=lead)
+    out["imu_feeds"] = res.pop("imu_feeds")  # differs between the ranks
+    out.update({f"runner_sys_{k}": v for k, v in res.items()})
+    for name, overlap in (("serial", False), ("overlap", True)):
+        res = run_runner(make_system(mesh, closures=True), scans, n_lc, overlap=overlap)
+        res.pop("imu_feeds")
+        out.update({f"runner_lc_{name}_{k}": v for k, v in res.items()})
     # a diverged rank: the check finds it on every rank and takes rank 0's state
     if mesh.get_local_rank() == 1:
         fs = sys_.fusion_state
