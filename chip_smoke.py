@@ -91,9 +91,10 @@ Phases, each printing its own line; any failed check exits non-zero:
    ``apps/soak_long_run.main([SOAK_KF, "--spill", "--speed-up",
    SOAK_SPEED_UP])`` (the example's configuration on a lap that closes)
    returns 0 (keyframe latency flat, graph solve under 1 s, resident
-   archives bounded), its report (latency and graph-solve quartiles,
-   resident archives) printed, B1 and B4 launched, no B3 and no plain
-   version;
+   archives bounded), its report (latency and graph-solve quartiles, GN
+   steps and those zeroed for a non-finite entry, resident archives)
+   printed, B1 and B4 launched, no B3 and no plain version, some GN step
+   finite;
 10. multichip: ``LiliOmSystem(mesh=…)`` at the whole ``fr_iosb_rot``
    preset on the first 50 scans of the runtime phase's lap, closures every 10 scans,
    the pruned switch unset. (a) NCCL at world size 1: equal to the
@@ -169,6 +170,29 @@ Phases, each printing its own line; any failed check exits non-zero:
    frames: both ATEs finite and printed, B1 and B4 launched, no plain
    version.
 
+13. graph (run after phase 5): (a) the pose graph's block-Thomas kernels
+   (``csrc/blocktri.cu``: the factor, the resolve) against their plain
+   versions (``ops/blocktri.py``) on the normal equations of seeded graphs
+   of the soak's end state, float32, chain lengths 2048 and 4096 with 1,
+   48, 192 and 384 right-hand columns, and of the laps' suffix graphs, 64
+   and 128 nodes with 1 and 48 columns, float32 and float64: the largest
+   gap over the largest entry within ``GRAPH_REL_TOL``, the kernels' CUDA
+   event times, one plain call's time, the bound and the chain length; and
+   a 4-node chain whose node 2 meets a pivot of -1, float32 and float64:
+   the kernels' clamp gives the plain versions' non-finite entries, finite
+   ones within the tolerance, and the zero step after ``_clamp_step``; (b)
+   the soak's end state (``soak_graph``: 2000 keyframes on 8 m laps, 27
+   loop factors reaching the first lap) solved by
+   ``solve_graph_incremental`` with the soak's ``graph_iters`` /
+   ``graph_tol`` from the optimum of its first 26 loops, through the
+   kernels and under ``plain_kernels()``: poses within
+   ``GRAPH_POSE_TOL_*``, the kernel route under the soak's 1 s, both times
+   and GN iteration counts printed, no step with a non-finite entry and
+   the nodes moved, one factor and two resolve launches a GN iteration and
+   no plain call. Every phase that closes a loop (6, 7,
+   9's closure run and soak, 10's mesh runs on rank 0) launches the factor
+   at least once a graph solve and two resolves a factor.
+
 Then one line with the ``kernels`` JSON, the ``nvidia-smi`` name/power-limit
 line, and last ``{"ok": true, "device": {...}}``. It imports nothing of the
 JAX package and needs no network.
@@ -185,6 +209,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -205,9 +230,11 @@ from lili_om_tpu_torch.io.checkpoint import load_system, save_system
 from lili_om_tpu_torch.io.dataset import (DatasetWriter, ImuRecord, ScanRecord, decode_spin,
                                           read_dataset, record_synthetic)
 from lili_om_tpu_torch.io.pcd import read_pcd, write_pcd
+from lili_om_tpu_torch.models import pose_graph as PG
 from lili_om_tpu_torch.models import system as system_mod
 from lili_om_tpu_torch.models.fusion import fusion_step
 from lili_om_tpu_torch.models.system import LiliOmSystem
+from lili_om_tpu_torch.ops import blocktri as BT
 from lili_om_tpu_torch.ops import knn as K
 from lili_om_tpu_torch.ops import segred as SG
 from lili_om_tpu_torch.ops import voxel as voxel_mod
@@ -224,13 +251,14 @@ from lili_om_tpu_torch.sim.lidar import livox_pattern, simulate_scan, spinning_p
 from lili_om_tpu_torch.sim.trajectory import (aggressive_trajectory, circle_trajectory, pose_at,
                                               simulate_imu)
 from lili_om_tpu_torch.sim.world import World, make_room_world
-from lili_om_tpu_torch.utils.config import load_config
+from lili_om_tpu_torch.utils.config import LoopClosureConfig, load_config
 from lili_om_tpu_torch.utils.evaluation import ate_rmse, host, load_tum
 from lili_om_tpu_torch.utils.live_viz import LiveViewer
 from lili_om_tpu_torch.utils.metrics import device_trace
 from lili_om_tpu_torch.utils.viz import export_run
-from lili_om_tpu_torch.utils.math import (pose_relative, quat_conj, quat_conj_np, quat_mul,
-                                          quat_normalize, quat_rotate, quat_rotate_np)
+from lili_om_tpu_torch.utils.math import (exp_so3, pose_relative, quat_conj, quat_conj_np,
+                                          quat_mul, quat_mul_np, quat_normalize, quat_rotate,
+                                          quat_rotate_np)
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -386,6 +414,14 @@ def reset_counts():
     """Every kernel wrapper's launch count to 0."""
     K.reset_launch_counts()
     SG.reset_launch_counts()
+    BT.reset_launch_counts()
+
+
+def launch_counts() -> dict:
+    """The launch counts of the kNN kernels and of the graph kernels, keyed
+    (name, ·, ·, ·): B1–B3 by (name, Q, P, k), ``blocktri_factor`` by (·,
+    N, 6, 0) and ``blocktri_resolve`` by (·, N, R, 0)."""
+    return dict(K.LAUNCHES) | dict(BT.LAUNCHES)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -445,7 +481,7 @@ def run_path(cfgs, scans, label: str):
         dev_ms.append(a.elapsed_time(b))
         poses.append((oout.t.clone(), oout.q.clone(), fout.t_latest.clone(),
                       int(oout.n_corr), int(fout.n_surf_corr), int(fout.n_edge_corr)))
-    counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
+    counts, seg_counts = launch_counts(), dict(SG.LAUNCHES)
     timed = sorted(host_ms[N_WARM:])
     print(f"[{label}] {len(scans)} scans: per-scan host ms median "
           f"{timed[len(timed) // 2]:.3f} min {timed[0]:.3f} max {timed[-1]:.3f}; "
@@ -859,7 +895,7 @@ def system_phase():
                     lc_ms.append(1e3 * (time.perf_counter() - t1))
                     if ok:
                         fired.append((k, float(icp.calls[-1][2].fitness)))
-            counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
+            counts, seg_counts = launch_counts(), dict(SG.LAUNCHES)
     finally:
         if prev is None:
             os.environ.pop("LILI_OM_KNN_PRUNED", None)
@@ -974,8 +1010,9 @@ def check_system(sys_, host_ms, counts, facts):
           f"{ {f'{w}:{q}x{p}:k{k}': c for (w, q, p, k), c in sorted(counts.items())} }")
     print("[system] stage metrics (a sync ends every stage):\n" + sys_.metrics.pretty())
     check(len(facts["fired"]) >= 1, f"system: no loop closure fired ({sys_.lc_rejects})")
-    check(n_icp >= 1 and len(sys_.metrics.samples.get("graph_solve", [])) >= 1,
-          "system: ICP or the graph solve did not run")
+    n_solves = len(sys_.metrics.samples.get("graph_solve", []))
+    check(n_icp >= 1 and n_solves >= 1, "system: ICP or the graph solve did not run")
+    check_graph_launches("system", "spin lap", counts, n_solves)
     check(len(sys_._loop_pairs) >= 1 and int(sys_.graph.n_loops) >= 1,
           "system: no loop factor in the graph")
     check(any(rb for _, rb, _ in facts["rebuilds"]),
@@ -1057,7 +1094,7 @@ def livox_phase():
                     lc_ms.append(1e3 * (time.perf_counter() - t1))
                     if ok:
                         fired.append((k, float(icp.calls[-1][2].fitness)))
-            counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
+            counts, seg_counts = launch_counts(), dict(SG.LAUNCHES)
     finally:
         if prev is not None:
             os.environ["LILI_OM_KNN_PRUNED"] = prev
@@ -1138,6 +1175,8 @@ def check_livox(sys_, host_ms, counts, seg_counts, facts):
           "iterations")
     check(all(w != "knn_pruned" for (w, *_) in counts), "livox: B3 launched")
     check(sum(seg_counts.values()) > 0, "livox: B4 did not launch")
+    check_graph_launches("livox", "Livox lap", counts,
+                         len(sys_.metrics.samples.get("graph_solve", [])))
 
 
 def livox_run():
@@ -1154,8 +1193,8 @@ def livox_run():
 
 
 class PlainSpy(Patch):
-    """Counts the calls of one plain version (``K.knn``, ``K.knn_map_plain``,
-    ``SG.segment_sum_sorted_plain``): on the card's path none may run."""
+    """Counts the calls of ``module.<name>``: of a plain version, of which
+    none may run on the card's path."""
 
     def __init__(self, module, name: str):
         super().__init__(module, name)
@@ -1166,18 +1205,36 @@ class PlainSpy(Patch):
         return self.orig(*args, **kw)
 
 
+# every kernel's plain version, as its dispatcher reaches it
+PLAIN_VERSIONS = ((K, "knn"), (K, "knn_map_plain"), (SG, "segment_sum_sorted_plain"),
+                  (BT, "block_tridiag_factor_plain"), (BT, "block_tridiag_resolve_plain"))
+
+
+class PlainSpies(contextlib.ExitStack):
+    """A :class:`PlainSpy` on every plain version for a ``with`` block;
+    ``n`` counts their calls together."""
+
+    def __enter__(self):
+        super().__enter__()
+        self.spies = [self.enter_context(PlainSpy(m, name)) for m, name in PLAIN_VERSIONS]
+        return self
+
+    @property
+    def n(self) -> int:
+        return sum(p.n for p in self.spies)
+
+
 def counted(run):
     """``run()`` with every launch count set to 0 just before and read just
     after, and the plain versions' calls counted. Returns (its result, kNN
-    counts, segment-sum counts, plain calls)."""
-    with (PlainSpy(K, "knn") as p1, PlainSpy(K, "knn_map_plain") as p2,
-          PlainSpy(SG, "segment_sum_sorted_plain") as p3):
+    and graph-kernel counts, segment-sum counts, plain calls)."""
+    with PlainSpies() as plain:
         sync()
         reset_counts()
         out = run()
         sync()
-        counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
-    return out, counts, seg_counts, p1.n + p2.n + p3.n
+        counts, seg_counts = launch_counts(), dict(SG.LAUNCHES)
+    return out, counts, seg_counts, plain.n
 
 
 class PlainDatasetWriter(DatasetWriter):
@@ -1276,11 +1333,27 @@ def check_gap(what, gap):
           f"runtime: {what} differ by {traj_m:.3e} / {win_m:.3e} m, {win_rad:.3e} rad")
 
 
-def check_counts(phase, what, counts, seg_counts, plain):
+def check_graph_launches(phase, what, counts, solves: int | None):
+    """A run's ``solves`` graph solves (None: not counted) went through the
+    graph kernels: at least one factor launch a solve (one a Gauss-Newton
+    iteration) and two resolves a factor (y0 and U: a suffix graph always
+    holds loop slots)."""
+    by = lambda w: sum(n for (name, *_), n in counts.items() if name == w)
+    f, r = by("blocktri_factor"), by("blocktri_resolve")
+    print(f"[{phase}] {what}: {'uncounted' if solves is None else solves} graph solves; "
+          f"blocktri launches factor {f}, resolve {r}")
+    check(f >= (solves or 0) and r == 2 * f,
+          f"{phase}: {what} launched the factor {f} and the resolve {r} times for {solves} "
+          "graph solves")
+
+
+def check_counts(phase, what, counts, seg_counts, plain, solves: int | None = None):
     """One run's launch counts (``counted``'s, possibly from another
     process): B1 (with its map preparations) and B4 launched, B3 not (the
-    switch unset), no plain version."""
+    switch unset), the graph kernels at each of its ``solves`` graph
+    solves, no plain version."""
     by = lambda w: sum(n for (name, *_), n in counts.items() if name == w)
+    check_graph_launches(phase, what, counts, solves)
     print(f"[{phase}] {what}: launches B1 {by('knn_counted')} (map preparations "
           f"{by('knn_map')}), B2 {by('knn_dense')}, B3 {by('knn_pruned')}, B4 "
           f"{sum(seg_counts.values())}; plain calls {plain}; "
@@ -1436,7 +1509,8 @@ def runtime_closure_run(log: str):
     writer with ``write_pcd``'s bytes, read back and on the world's
     surfaces. Returns its facts."""
     (lcs, lc_runner, lc_s, lc_rep), *c = counted(lambda: run_pipelined(log, RT_LOOP_PERIOD_S))
-    check_counts("runtime", "closure run", *c)
+    check_counts("runtime", "closure run", *c,
+                 solves=len(lcs.metrics.samples.get("graph_solve", [])))
     check_runtime_features("closure run", lcs)
     check(lc_runner.n_processed == RT_SCANS,
           f"runtime: the closure run took {lc_runner.n_processed} of {RT_SCANS} scans")
@@ -1949,8 +2023,7 @@ def mesh_lap(mesh, scans, imu, cfg, lc, record: bool = True):
     with (Recorder("knn_counted_cuda", armed=record) as first,
           Recorder("knn_counted_cuda", armed=False) as grown,
           SegRecorder(armed=False) as seg, GatherSpy() as gather,
-          PlainSpy(K, "knn") as p1, PlainSpy(K, "knn_map_plain") as p2,
-          PlainSpy(SG, "segment_sum_sorted_plain") as p3):
+          PlainSpies() as plain):
         sync()
         reset_counts()
         for k, (img, valid, rel) in enumerate(scans):
@@ -1965,11 +2038,12 @@ def mesh_lap(mesh, scans, imu, cfg, lc, record: bool = True):
             if mesh is not None and k == MC_RUNNER_SCANS - 1:
                 digest_at = sys_.replicated_digest()
         sync()
-        counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
+        counts, seg_counts = launch_counts(), dict(SG.LAUNCHES)
     n_kf = len(sys_.kf_stamps)
     cpu = lambda v: tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in v)  # noqa: E731
     facts = {"host_ms": host_ms, "fired": fired, "counts": counts, "seg_counts": seg_counts,
-             "plain_calls": p1.n + p2.n + p3.n,
+             "plain_calls": plain.n, "rank": dist.get_rank() if mesh is not None else 0,
+             "solves": len(sys_.metrics.samples.get("graph_solve", [])),
              "backend_p50_ms": sys_.metrics.report()["backend"]["p50_ms"],
              "trajectory": np.asarray(sys_.trajectory), "kf_stamps": list(sys_.kf_stamps),
              "graph_t": sys_.graph.t[:n_kf].cpu(), "n_loops": int(sys_.graph.n_loops),
@@ -2006,8 +2080,7 @@ def mesh_runner(mesh, scans, imu, cfg, lc, overlap: bool, record: bool = False):
     runner = PipelineRunner(sys_, overlap=overlap, drop_when_full=False,
                             loop_period_s=LC_EVERY * 0.1, scan_period=0.1)
     with (Recorder("knn_counted_cuda", armed=False) as grown, SegRecorder(armed=False) as seg,
-          PlainSpy(K, "knn") as p1, PlainSpy(K, "knn_map_plain") as p2,
-          PlainSpy(SG, "segment_sum_sorted_plain") as p3):
+          PlainSpies() as plain):
         sync()
         reset_counts()
         t0 = time.perf_counter()
@@ -2026,7 +2099,7 @@ def mesh_runner(mesh, scans, imu, cfg, lc, overlap: bool, record: bool = False):
             runner.stop(drain=True)
         sync()
         secs = time.perf_counter() - t0
-        counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
+        counts, seg_counts = launch_counts(), dict(SG.LAUNCHES)
     n_kf = len(sys_.kf_stamps)
     cpu = lambda v: tuple(x.cpu() if isinstance(x, torch.Tensor) else x for x in v)  # noqa: E731
     return {"overlap": overlap, "scans_per_s": len(host_scans) / secs,
@@ -2035,7 +2108,8 @@ def mesh_runner(mesh, scans, imu, cfg, lc, overlap: bool, record: bool = False):
             "backend_p50_ms": sys_.metrics.report()["backend"]["p50_ms"],
             "kf_stamps": list(sys_.kf_stamps), "graph_t": sys_.graph.t[:n_kf].cpu(),
             "n_loops": int(sys_.graph.n_loops), "lc_rejects": dict(sys_.lc_rejects),
-            "counts": counts, "seg_counts": seg_counts, "plain_calls": p1.n + p2.n + p3.n,
+            "counts": counts, "seg_counts": seg_counts, "plain_calls": plain.n,
+            "rank": dist.get_rank(), "solves": len(sys_.metrics.samples.get("graph_solve", [])),
             "grown": {k: cpu(v) for k, v in grown.seen.items()
                       if not isinstance(v[1], K.KnnMap)},
             "seg": {k: cpu(v) for k, v in seg.seen.items()}}
@@ -2070,8 +2144,7 @@ def fusion_replay(step_for, rec, record: bool = False):
     with (Recorder("knn_counted_cuda", armed=record) as first,
           Recorder("knn_counted_cuda", armed=False) as grown,
           SegRecorder(armed=False) as seg, GatherSpy(dist_fusion_mod) as gather,
-          PlainSpy(K, "knn") as p1, PlainSpy(K, "knn_map_plain") as p2,
-          PlainSpy(SG, "segment_sum_sorted_plain") as p3):
+          PlainSpies() as plain):
         sync()
         reset_counts()
         for k, (args, warm) in enumerate(rec["inputs"]):
@@ -2084,9 +2157,9 @@ def fusion_replay(step_for, rec, record: bool = False):
             outs.append(tuple(x.cpu() for x in (o.t_latest, o.q_latest, o.n_surf_corr,
                                                  o.n_edge_corr)))
         sync()
-        counts, seg_counts = dict(K.LAUNCHES), dict(SG.LAUNCHES)
+        counts, seg_counts = launch_counts(), dict(SG.LAUNCHES)
     return {"state": tree_to(st, "cpu"), "outs": outs, "ms": ms, "counts": counts,
-            "seg_counts": seg_counts, "plain_calls": p1.n + p2.n + p3.n,
+            "seg_counts": seg_counts, "plain_calls": plain.n,
             "gather": (gather.bytes, gather.event_ms, gather.host_ms),
             "first": host_tree({k: v for k, v in first.seen.items()
                                 if not isinstance(v[1], K.KnnMap)}),
@@ -2181,6 +2254,10 @@ def check_mesh_counts(label, f, knn_sites, seg_sites, n_scans):
               f"multichip {label}: B4 did not launch at the {name} site {key}")
     check(not any(w == "knn_pruned" for w, *_ in f["counts"]), f"multichip {label}: B3 launched")
     check(f["plain_calls"] == 0, f"multichip {label}: a plain version ran {f['plain_calls']} times")
+    # rank 0 alone runs a closure's ICP and graph solve
+    check(f["rank"] != 0 or f["n_loops"] == 0 or f["solves"] >= 1,
+          f"multichip {label}: {f['n_loops']} loop factors and no graph solve on rank 0")
+    check_graph_launches("multichip", label, f["counts"], f["solves"])
 
 
 def mesh_rows(phase, f, knn_sites, seg_sites, snapshot):
@@ -2531,8 +2608,9 @@ def soak_phase():
     runtime phase (:func:`start_child`), every launch count set to 0 just
     before and read just after: it must return 0 (keyframe latency flat,
     graph solve under 1 s, resident archives bounded); its report printed
-    line by line, B1 and B4 launched, no B3 and no plain version. Returns
-    its facts."""
+    line by line, B1 and B4 launched, no B3 and no plain version, G1 and G2
+    at every solve, and a GN step count over its solves with some step
+    finite (a step with a non-finite entry is zeroed). Returns its facts."""
     buf = io.StringIO()
     t0 = time.perf_counter()
     try:
@@ -2557,7 +2635,19 @@ def soak_phase():
     check(not any(w in ("knn_pruned", "knn_dense") for w, *_ in counts),
           "soak: B2 or B3 launched")
     check(plain == 0, f"soak: a plain version ran {plain} times")
-    return {"seconds": secs, "report": lines, "b1": b1, "b4": sum(seg_counts.values())}
+    # the report's "closures: n" counts the graph solves
+    solves = [int(x.split("closures: ")[1].split(",")[0]) for x in lines if "closures: " in x]
+    check(len(solves) == 1 and solves[0] >= 1, f"soak: graph solves {solves}")
+    check_graph_launches("soak", "the soak", counts, solves[0])
+    # its GN steps (apps/soak_long_run.py:GnSteps): some of them finite
+    steps = [re.search(r"GN steps: (\d+) in (\d+) solves .*\(zeroed\): (\d+) in", x)
+             for x in lines if x.startswith("graph-solve GN steps: ")]
+    check(len(steps) == 1 and int(steps[0][2]) == solves[0]
+          and int(steps[0][1]) > int(steps[0][3]),
+          f"soak: the GN step report {[x for x in lines if 'GN steps: ' in x]} counts no "
+          "finite step for its solves")
+    return {"seconds": secs, "report": lines, "b1": b1, "b4": sum(seg_counts.values()),
+            "blocktri": {k: c for k, c in counts.items() if k[0].startswith("blocktri")}}
 
 
 CHILD_RUNS = {"soak": soak_phase, "runtime_closure": runtime_closure_run, "livox": livox_run}
@@ -3024,6 +3114,333 @@ def evaluate_phase(tmp, out, frame, trace_scans, main_inputs, odo_cfg, known_row
     return facts, kernel_rows
 
 
+# ---------------------------------------------------------------------------
+# 13. graph: the pose graph's block-Thomas kernels at the soak's shapes and
+# the global solve of the soak's end state
+# ---------------------------------------------------------------------------
+
+# the soak's graph (apps/soak_long_run.py: float32, a 2048-node graph that
+# doubles to 4096 past 2048 keyframes, loop slots rounded to 8, 16, 32 in a
+# suffix graph, 64 in the whole one): the kernels against their plain
+# versions at each chain length N and right-hand column count R (1: the
+# gradient's y0; 6·L: U's columns); the laps' closures solve suffix graphs
+# of 64 and 128 nodes with 8 loop slots, in float32 and float64
+GRAPH_SHAPES = (((2048, 4096), (1, 48, 192, 384), (torch.float32,)),
+                ((64, 128), (1, 48), (torch.float32, torch.float64)))
+# the kernel against the plain version, largest gap over the largest entry
+# of each output: the same operations in the same order, but the 6-term
+# products B^T C, B^T z and C x summed as FMA chains (the plain version's
+# matmul sums in its own order); the chain carries those roundings along
+# its N steps, some 1e-5 of the entries in float32 and 1e-14 in float64
+GRAPH_REL_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+# the soak's end state (the example's lap, 2000 keyframes: 2059 keyframes,
+# 27 loop factors, 94 keyframes a lap of the 8 m circle, PERF.md §6):
+# GRAPH_NODES keyframes, odometry
+# chain factors with GRAPH_ODO_NOISE (m, rad) per keyframe, GRAPH_LOOPS loop
+# factors (fitness GRAPH_FITNESS) to earlier laps, the first few to the
+# first lap, so the suffix is the whole graph; the last one is the closure
+# that (b) solves, from the optimum of the others
+GRAPH_NODES, GRAPH_LOOPS, GRAPH_KF_PER_LAP, GRAPH_RADIUS = 2000, 27, 94, 8.0
+GRAPH_ODO_NOISE, GRAPH_FITNESS = (0.005, 0.0005), 0.05
+# (b): the kernel route and the plain route of one solve stop on the same
+# GN step norm (graph_tol 1e-3); their poses agree within what one step
+# under that norm moves a node
+GRAPH_POSE_TOL_M, GRAPH_POSE_TOL_RAD = 2e-3, 2e-3
+GRAPH_BOUND_S = 1.0  # the soak's graph-solve bound
+PEAK_F64_FLOPS = 34e12  # H100 SXM, f64 outside the tensor cores
+# operations a node: the factor's S (21 entries, 6 products each), the
+# Cholesky (70 in the updates, 15 divisions, 6 square roots) and 6 columns
+# of the two triangular solves (72 each); the resolve per column: B^T z
+# and C x (78 each) and the solves (72)
+FACTOR_OPS_PER_NODE, RESOLVE_OPS_PER_NODE_COL = 2 * 21 * 6 + 21 + 70 + 21 + 6 * 72, 228
+SOURCE_BLOCKTRI = "lili_om_tpu_torch/csrc/blocktri.cu"
+REPLACES_BLOCKTRI = {"blocktri_factor": "lili_om_tpu/models/pose_graph.py:339",
+                     "blocktri_resolve": "lili_om_tpu/models/pose_graph.py:358"}
+
+
+def soak_graph(n: int, capacity: int, loop_capacity: int, n_loops: int, dtype, seed: int = 0):
+    """A seeded graph of the soak's end state: ``n`` keyframes over laps of
+    the 8 m circle, chain factors from the true relative poses with
+    odometry noise, node poses dead-reckoned along them, ``n_loops`` loop
+    factors (true relative poses) from keyframes of the second half to the
+    same place on the first or second lap, every other one to the first.
+    Returns (graph on the card, loop pairs (i, j) in order)."""
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+    lap = min(GRAPH_KF_PER_LAP, n // 3)  # a graph under three laps: three shorter laps
+    th = torch.arange(n, dtype=f64) * (2.0 * math.pi / lap)
+    t_true = torch.stack([GRAPH_RADIUS * torch.cos(th) - GRAPH_RADIUS,
+                          GRAPH_RADIUS * torch.sin(th), 0.5 * torch.sin(2.0 * th)], -1)
+    z = torch.zeros_like(th)
+    q_true = exp_so3(torch.stack([z, z, th + math.pi / 2.0], -1))
+    dt, dq = pose_relative(t_true[:-1], q_true[:-1], t_true[1:], q_true[1:])
+    dt = dt + torch.as_tensor(rng.normal(size=dt.shape) * GRAPH_ODO_NOISE[0])
+    dq = quat_normalize(quat_mul(dq, exp_so3(torch.as_tensor(
+        rng.normal(size=dt.shape) * GRAPH_ODO_NOISE[1]))))
+    t, q = torch.zeros((n, 3), dtype=f64), torch.zeros((n, 4), dtype=f64)
+    t[0], q[0] = t_true[0], q_true[0]
+    for k in range(n - 1):
+        t[k + 1] = t[k] + quat_rotate(q[k], dt[k])
+        q[k + 1] = quat_normalize(quat_mul(q[k], dq[k]))
+    g = PG.init_graph(capacity, loop_capacity, dtype=f64, device="cpu")
+    g = g._replace(
+        t=g.t.index_copy(0, torch.arange(n), t), q=g.q.index_copy(0, torch.arange(n), q),
+        node_valid=g.node_valid.index_fill(0, torch.arange(n), True),
+        rel_t=g.rel_t.index_copy(0, torch.arange(n - 1), dt),
+        rel_q=g.rel_q.index_copy(0, torch.arange(n - 1), dq),
+        rel_valid=g.rel_valid.index_fill(0, torch.arange(n - 1), True),
+        rel_weight=g.rel_weight.index_fill(0, torch.arange(n - 1), 100.0),
+        n_nodes=torch.tensor(n, dtype=torch.int32))
+    pairs = []
+    for m in range(n_loops):
+        i = n - 1 - (n_loops - 1 - m) * max(1, n // (2 * n_loops))
+        j = i % lap + (lap if m % 2 and i % lap + lap < i else 0)
+        rt, rq = pose_relative(t_true[i], q_true[i], t_true[j], q_true[j])
+        g = PG.add_loop(g, i, j, rt, rq, GRAPH_FITNESS)
+        pairs.append((i, j))
+    return PG.PoseGraph(*(x.to(DEV, dtype) if x.is_floating_point() else x.to(DEV)
+                          for x in g)), pairs
+
+
+def graph_inputs(g, n_cols):
+    """The factor's (D, B) and the resolve's right-hand sides at ``g``'s
+    poses, as ``optimize_graph_chain``'s first iteration forms them (the
+    soak's prior and damping): for R = 1 the negated gradient, for R = 6·L
+    U's columns of the first L loop slots (the unused slots' columns are
+    zero, as in a solve)."""
+    diag_add = PG._anchor_freeze(g, 1e6) + 1e-6
+    D, B, gv, loops = PG._chain_system(g, g.t, g.q, diag_add)
+    rhs = {R: (-gv[:, :, None] if R == 1
+               else PG._loop_columns(g.t.shape[0], tuple(x[:R // 6] for x in loops)))
+           for R in n_cols}
+    return D, B, rhs
+
+
+def rel_gap(a, b):
+    """(largest |a − b|, that over the largest |b|); both must be finite
+    at the same entries."""
+    fin = torch.isfinite(b)
+    check(bool(torch.equal(fin, torch.isfinite(a))), "graph: kernel and plain non-finite apart")
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    err, scale = float((a - b)[fin].abs().max()), float(b[fin].abs().max())
+    return err, err / scale if scale > 0 else 0.0
+
+
+def host_s(fn):
+    """(result, seconds) of one call of ``fn``, synchronized."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def graph_row(name, N, R, dtype, gaps, ms, plain_ms, launches, plain_cols=None):
+    """One kernel row: the bound from the bytes (each input read once, each
+    output written once) and the operations at the card's peak rate for
+    the type."""
+    es = torch.empty((), dtype=dtype).element_size()
+    err, gap = gaps
+    if name == "blocktri_factor":
+        n_bytes, ops = 4 * 36 * N * es, FACTOR_OPS_PER_NODE * N
+    else:
+        n_bytes, ops = 3 * 36 * N * es + 2 * 6 * N * R * es, RESOLVE_OPS_PER_NODE_COL * N * R
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = ops / (PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_F64_FLOPS)
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    tag = f"{str(dtype).split('.')[1]}_N{N}" + (f"_R{R}" if name == "blocktri_resolve" else "")
+    print(f"[graph] {name} {tag}: chain length {N}, max relative gap {gap:.3e} (tolerance "
+          f"{GRAPH_REL_TOL[dtype]:.0e}), max abs {err:.3e}; kernel {ms:.4f} ms (CUDA events), "
+          f"plain {plain_ms:.2f} ms" + (f" (one call over {plain_cols} columns)" if plain_cols else "")
+          + f", bound {bound_ms:.5f} ms ({'bytes' if t_bytes >= t_ops else 'ops'})")
+    check(gap <= GRAPH_REL_TOL[dtype], f"graph: {name} {tag} differs from the plain version by "
+          f"{gap:.3e} of its largest entry")
+    return {"name": f"{name}[{tag}]", "route": "cuda", "source": SOURCE_BLOCKTRI,
+            "replaces": REPLACES_BLOCKTRI[name], "launches": launches, "max_abs_err": err,
+            "max_rel_gap": gap, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "shape": [N, R], "dtype": str(dtype), "chain_length": N,
+            "plain_columns": plain_cols or R}
+
+
+@timed_check
+def compare_blocktri(N, n_cols, dtype, g):
+    """(a) at one chain length: the factor kernel and the resolve kernel at
+    each R against their plain versions on the same inputs (the resolve's
+    on the kernel's factor), the kernels timed by CUDA events. The plain
+    factor is one timed call; the plain resolve one timed call over the
+    columns of every R together (R = 1's and the widest U's, whose first
+    6·L columns are U's of L loop slots): a plain walk takes ~40 launches a
+    node whatever R is, seconds at these lengths."""
+    D, B, rhs = graph_inputs(g, n_cols)
+    check(D.shape[0] == N, f"graph: inputs of {D.shape[0]} nodes, not {N}")
+    fk = BT.block_tridiag_factor_cuda(D, B)
+    fp, fp_s = host_s(lambda: BT.block_tridiag_factor_plain(D, B))
+    gaps = [rel_gap(a, b) for a, b in zip(fk[:2], fp[:2])]
+    gap = (max(e for e, _ in gaps), max(r for _, r in gaps))
+    check(bool(torch.equal(fk[2], fp[2])), "graph: the factor's B_prev differs")
+    rows = [graph_row("blocktri_factor", N, 6, dtype, gap,
+                      cuda_ms(lambda: BT.block_tridiag_factor_cuda(D, B), 5), 1e3 * fp_s, 0)]
+    wide = max(n_cols)
+    check(all(torch.equal(rhs[R], rhs[wide][..., :R]) for R in n_cols if R > 1),
+          "graph: U's columns of fewer loop slots are not the widest U's first columns")
+    cols = torch.cat([rhs[1], rhs[wide]], dim=2)
+    xp, xp_s = host_s(lambda: BT.block_tridiag_resolve_plain(fk, cols))
+    for R in n_cols:
+        xk = BT.block_tridiag_resolve_cuda(fk, rhs[R])
+        row = graph_row("blocktri_resolve", N, R, dtype,
+                        rel_gap(xk, xp[..., :1] if R == 1 else xp[..., 1:1 + R]),
+                        cuda_ms(lambda: BT.block_tridiag_resolve_cuda(fk, rhs[R]), 5),
+                        1e3 * xp_s, 0, plain_cols=cols.shape[2])
+        rows.append(row)
+    return rows
+
+
+def pivot_case(dtype):
+    """(D, B, rhs) on the card whose node-2 block meets a pivot of -1 in its
+    Cholesky (``tests/test_torch_pose_graph.py:_pivot_case``)."""
+    N = 4
+    D = np.stack([4.0 * np.eye(6)] * N)
+    D[2, 3, 3] = -1.0
+    B = 0.1 * np.random.default_rng(0).normal(size=(N, 6, 6))
+    rhs = np.random.default_rng(1).normal(size=(N, 6, 1))
+    return tuple(torch.as_tensor(a, dtype=dtype, device=DEV).contiguous() for a in (D, B, rhs))
+
+
+@timed_check
+def compare_pivot(dtype):
+    """(a) the non-positive pivot: the kernels' clamp against the plain
+    versions' (the JAX package's ``_chol6``, which the CPU tests hold the
+    plain versions to): the same non-finite entries in Lcs, Cs and the
+    solve, the finite ones within ``GRAPH_REL_TOL``, and ``_clamp_step`` of
+    both solves the zero step."""
+    D, B, rhs = pivot_case(dtype)
+    fk = BT.block_tridiag_factor_cuda(D, B)
+    xk = BT.block_tridiag_resolve_cuda(fk, rhs)
+    fp = BT.block_tridiag_factor_plain(D, B)
+    xp = BT.block_tridiag_resolve_plain(fp, rhs)
+    sync()
+    gaps = {name: rel_gap(a, b) for name, a, b in (("Lcs", fk[0], fp[0]), ("Cs", fk[1], fp[1]),
+                                                     ("X", xk, xp))}
+    nonfinite = {name: int((~torch.isfinite(b)).sum()) for name, b in
+                 (("Lcs", fp[0]), ("Cs", fp[1]), ("X", xp))}
+    step_k, step_p = PG._clamp_step(xk[..., 0]), PG._clamp_step(xp[..., 0])
+    tag = str(dtype).split(".")[1]
+    print(f"[graph] pivot -1 at node 2 of 4, {tag}: non-finite entries {nonfinite} (kernel and "
+          f"plain at the same entries), finite gaps over the largest entry "
+          f"{ {k: f'{r:.3e}' for k, (_, r) in gaps.items()} } (tolerance "
+          f"{GRAPH_REL_TOL[dtype]:.0e}); the step after _clamp_step: kernel "
+          f"{float(step_k.abs().max()):.1e}, plain {float(step_p.abs().max()):.1e}")
+    check(nonfinite["X"] > 0, f"graph: pivot case {tag}: the plain solve is finite")
+    check(all(r <= GRAPH_REL_TOL[dtype] for _, r in gaps.values()),
+          f"graph: pivot case {tag}: finite entries differ by {gaps}")
+    check(not bool(step_k.any()) and not bool(step_p.any()),
+          f"graph: pivot case {tag}: _clamp_step did not zero the step")
+    return {"dtype": tag, "nonfinite": nonfinite,
+            "gaps": {k: r for k, (_, r) in gaps.items()}}
+
+
+def graph_solve(g, n, pairs, plain: bool):
+    """``solve_graph_incremental`` with the soak's ``graph_iters`` /
+    ``graph_tol``, through the kernels or under ``plain_kernels()``, the
+    counts set to 0 just before and read just after. Returns ((t, q),
+    seconds, GN iterations, steps with a non-finite entry, graph-kernel
+    counts, plain calls)."""
+    lc = LoopClosureConfig()
+    # optimize_graph_chain forms its normal equations once a GN iteration
+    with PlainSpy(PG, "_chain_system") as gn, PlainSpies() as spies, (
+            plain_kernels() if plain else contextlib.nullcontext()):
+        sync()
+        reset_counts()
+        with soak_long_run.GnSteps() as steps:
+            out, secs = host_s(lambda: PG.solve_graph_incremental(
+                g, n, pairs, n_iters=lc.graph_iters, tol=lc.graph_tol))
+        counts = dict(BT.LAUNCHES)
+    return out, secs, gn.n, steps.nonfinite, counts, spies.n
+
+
+def add_graph_launches(rows, counts):
+    """Adds a run's launches of each float32 row's shape (the system runs
+    its graph in float32) to the graph kernels' rows."""
+    for r in rows:
+        N, R = r["shape"]
+        if r["dtype"] == "torch.float32":
+            r["launches"] += counts.get((r["name"].split("[")[0], N, R, 0), 0)
+
+
+def graph_phase():
+    """(a) the factor and resolve kernels against their plain versions at
+    the soak's shapes and the laps' suffix shapes; (b) the soak's end state
+    (``soak_graph``) solved by ``solve_graph_incremental`` through the
+    kernels and under ``plain_kernels()``: the poses of both routes, the
+    kernel route under the soak's 1 s bound, a factor launch and two
+    resolves a GN iteration, no plain call. Returns (kernel rows, facts)."""
+    rows = []
+    for lengths, n_cols, dtypes in GRAPH_SHAPES:
+        for N in lengths:
+            for dtype in dtypes:
+                n = min(N - N // 32, GRAPH_NODES + 59 if N > 2048 else GRAPH_NODES)
+                L = 64 if N > 128 else 8
+                g, _ = soak_graph(n, N, L, min(GRAPH_LOOPS, L), dtype, seed=N)
+                rows += compare_blocktri(N, n_cols, dtype, g)
+    pivot = [compare_pivot(dtype) for dtype in (torch.float32, torch.float64)]
+    # (b): the 26 earlier closures solved first (kernel route, until a solve
+    # converges), then the last closure from their optimum, both routes
+    g, pairs = soak_graph(GRAPH_NODES, 2048, 64, GRAPH_LOOPS, torch.float32, seed=1)
+    n = GRAPH_NODES
+    earlier = g._replace(loop_valid=g.loop_valid.clone().index_fill(
+        0, torch.tensor([GRAPH_LOOPS - 1], device=g.t.device), False))
+    warm = []
+    for _ in range(5):
+        (t, q), secs, iters, _, _, _ = graph_solve(earlier, n, pairs[:-1], plain=False)
+        earlier = earlier._replace(t=earlier.t.index_copy(0, torch.arange(n, device=DEV),
+                                                          torch.as_tensor(t, device=DEV)),
+                                   q=earlier.q.index_copy(0, torch.arange(n, device=DEV),
+                                                          torch.as_tensor(q, device=DEV)))
+        warm.append((iters, round(secs, 4)))
+        if iters < LoopClosureConfig().graph_iters:
+            break
+    g = g._replace(t=earlier.t, q=earlier.q)
+    base = PG.affected_base(pairs)
+    (kt, kq), k_s, k_iters, k_nonfinite, k_counts, k_plain = graph_solve(g, n, pairs, plain=False)
+    (pt, pq), p_s, p_iters, p_nonfinite, p_counts, p_plain = graph_solve(g, n, pairs, plain=True)
+    moved = float(np.linalg.norm(kt - g.t[:n].cpu().numpy(), axis=1).max())
+    gap_m = float(np.linalg.norm(kt - pt, axis=1).max())
+    dq = quat_mul_np(quat_conj_np(kq.astype(np.float64)), pq.astype(np.float64))
+    gap_rad = float(2.0 * np.linalg.norm(dq[:, 1:], axis=1).max())
+    fac = sum(c for k, c in k_counts.items() if k[0] == "blocktri_factor")
+    res = sum(c for k, c in k_counts.items() if k[0] == "blocktri_resolve")
+    print(f"[graph] (b) the soak's end state: {n} keyframes, {len(pairs)} loop factors (the "
+          f"earliest endpoint {min(min(p) for p in pairs)}: suffix from node {base}, "
+          f"{n - base} nodes in a {PG._pow2_at_least(n - base)}-node graph); the earlier "
+          f"closures' warm-up solves (GN iterations, s) {warm}; the last closure: kernel route "
+          f"{k_s:.4f} s in {k_iters} GN iterations, {k_nonfinite} with a non-finite step, "
+          f"nodes moved up to {moved:.3e} m (launches {k_counts}), plain route "
+          f"{p_s:.4f} s in {p_iters} iterations, {p_nonfinite} non-finite; poses apart by up "
+          f"to {gap_m:.3e} m, "
+          f"{gap_rad:.3e} rad" + ("" if k_iters == p_iters else
+                                  f" (the early exit stopped them {k_iters} and {p_iters} "
+                                  "iterations in)"))
+    check(bool(np.isfinite(kt).all() and np.isfinite(kq).all()), "graph: a pose is not finite")
+    check(k_nonfinite == p_nonfinite == 0 and moved > 0.0,
+          f"graph: the last closure's solve took {k_nonfinite} (plain {p_nonfinite}) non-finite "
+          f"steps and moved the nodes {moved:.3e} m")
+    check(gap_m < GRAPH_POSE_TOL_M and gap_rad < GRAPH_POSE_TOL_RAD,
+          f"graph: the kernel and plain routes' poses differ by {gap_m:.3e} m, {gap_rad:.3e} rad")
+    check(k_s < GRAPH_BOUND_S, f"graph: the kernel route took {k_s:.3f} s (bound 1 s)")
+    check(fac == k_iters >= 1 and res == 2 * fac and k_plain == 0,
+          f"graph: {fac} factor / {res} resolve launches and {k_plain} plain calls for "
+          f"{k_iters} GN iterations")
+    check(not p_counts and p_plain > 0, "graph: the plain route launched a kernel")
+    add_graph_launches(rows, k_counts)
+    return rows, {"nodes": n, "loops": len(pairs), "base": base, "warm": warm,
+                  "kernel_s": k_s, "plain_s": p_s, "kernel_iters": k_iters,
+                  "kernel_nonfinite_steps": k_nonfinite, "moved_m": moved, "pivot": pivot,
+                  "plain_iters": p_iters, "gap_m": gap_m, "gap_rad": gap_rad,
+                  "launches": {f"{k[0]}:{k[1]}x{k[2]}": c for k, c in k_counts.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -3139,6 +3556,11 @@ def main(argv=None) -> int:
                               (qs.contiguous(), pts, None, None), 0)
 
     phase_done("large map and kernel checks")
+    # 13. the pose graph's kernels, and the soak's end state solved
+    graph_rows, graph_facts = graph_phase()
+    kernels += graph_rows
+
+    phase_done("graph")
     # 6. system phase, and beside it, in a process of its own, 7. the Livox
     # lap; then B3 at each of the system's call sites and B1 at the Livox
     # lap's, with the card to themselves
@@ -3179,6 +3601,7 @@ def main(argv=None) -> int:
     check({n.split("[")[1].split("_k")[0] for n in (x["name"] for x in kernels)
            if n.startswith("knn_pruned")} >= {"icp", "odometry", "fusion_surf", "fusion_edge"},
           "B3: a call site was not recorded")
+    add_graph_launches(graph_rows, sys_counts)
     sys_rejects = sys_.lc_rejects
     del sys_, sys_inputs, icp_calls
     torch.cuda.empty_cache()
@@ -3189,6 +3612,7 @@ def main(argv=None) -> int:
     lvx_ms, lvx_counts, lvx_seg_counts, lvx_seg, lvx_facts = (
         lv["host_ms"], lv["counts"], lv["seg_counts"], lv["seg_seen"], lv["facts"])
     lvx_rejects = lv["lc_rejects"]
+    add_graph_launches(graph_rows, lvx_counts)
     lvx_rows = compare_sites("livox_", {("knn_counted",) + key: v
                                         for key, v in lv["inputs"].items()},
                              lvx_counts, site_names(lv["odo_cfg"], lv["fusion_cfg"],
@@ -3218,6 +3642,7 @@ def main(argv=None) -> int:
         soak = start_child("soak", tmp)
         rt_facts = runtime_phase(tmp, profile=args.profile)
         soak_facts = join_child(soak, "soak", tmp)
+        add_graph_launches(graph_rows, soak_facts["blocktri"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         if prev is not None:
@@ -3263,6 +3688,7 @@ def main(argv=None) -> int:
                        "livox": {"per_scan_host_ms": lvx_ms, "lc_rejects": lvx_rejects,
                                  **lvx_facts},
                        "runtime": rt_facts, "soak": soak_facts, "multichip": mc_facts,
+                       "graph": graph_facts,
                        "evaluate": ev_facts,
                        "phase_s": phase_s,
                        "kernels": kernels + [unmasked]}, f, indent=1)

@@ -17,7 +17,11 @@ reached, checking the three long-run invariants. The port's counterpart of
   ``archive_keep_recent`` (``LiliOmSystem.spill_archives``; the spill
   directory is a temporary one, removed at the end).
 
-It prints ``SOAK PASS`` or ``SOAK FAIL`` and returns 0 or 1. One lap is
+Beside the verdict it counts the closures' Gauss-Newton steps
+(:class:`GnSteps`): iterations a solve, and steps with a non-finite entry,
+which ``_clamp_step`` zeroes (a solve whose every step is zeroed is fast
+and moves nothing). It prints ``SOAK PASS`` or ``SOAK FAIL`` and returns 0
+or 1. One lap is
 simulated once (``FRAMES_PER_LAP`` scans) and replayed with shifted stamps.
 The configuration is the JAX example's (16×360 sweeps, an odometry map of
 4096 points, a 2048-node graph, a closure attempt every 10 scans, float32,
@@ -76,6 +80,33 @@ def make_system(device=None, dtype=torch.float32):
         graph_capacity=2048, dtype=dtype, device=device)
 
 
+class GnSteps:
+    """While active, counts the graph solves' Gauss-Newton steps: each step
+    passes once through ``models/pose_graph.py:_clamp_step``, which zeroes
+    its non-finite entries. ``iters`` counts the steps, ``nonfinite`` those
+    with a non-finite entry (one host sync a step; the solve already syncs
+    on each step's norm)."""
+
+    def __init__(self):
+        self.iters = self.nonfinite = 0
+
+    def __enter__(self):
+        from ..models import pose_graph
+
+        self._module, self._clamp = pose_graph, pose_graph._clamp_step
+
+        def clamp(d, *args, **kwargs):
+            self.iters += 1
+            self.nonfinite += int(not bool(torch.isfinite(d).all()))
+            return self._clamp(d, *args, **kwargs)
+
+        pose_graph._clamp_step = clamp
+        return self
+
+    def __exit__(self, *exc):
+        self._module._clamp_step = self._clamp
+
+
 def p50(x) -> float:
     return float(np.percentile(x, 50)) if len(x) else float("nan")
 
@@ -84,8 +115,9 @@ def run(n_keyframes: int, spill: bool = False, loop_every: int = 10, device=None
         log=print, speed_up: float = SPEED_UP) -> dict:
     """Replay laps until ``n_keyframes`` keyframes exist (checked after each
     lap). Returns the system, the per-keyframe latencies and the closures'
-    solve times (seconds), the laps, the resident set before and after (MB)
-    and the resident surf archives."""
+    solve times (seconds) and GN steps a solve (iterations, non-finite),
+    the laps, the resident set before and after (MB) and the resident surf
+    archives."""
     from ..device import resolve_device
     from ..sim.lidar import simulate_scan, spinning_pattern
     from ..sim.trajectory import circle_trajectory, simulate_imu
@@ -112,37 +144,44 @@ def run(n_keyframes: int, spill: bool = False, loop_every: int = 10, device=None
     imu_s, imu_a, imu_g = (host(x) for x in simulate_imu(traj, 0.0, LAP_T, rate=200.0,
                                                          device=dev))
 
-    kf_lat, solve_t, lap = [], [], 0
+    kf_lat, solve_t, gn, lap = [], [], [], 0
     n_kf_logged = n_solve_logged = 0
     rss0 = rss_mb()
     t_start = time.time()
-    while len(sys_.kf_stamps) < n_keyframes:
-        base = lap * LAP_T
-        keep = imu_s > 1e-9 if lap else np.ones_like(imu_s, bool)
-        sys_.push_imu(imu_s[keep] + base, imu_a[keep], imu_g[keep])
-        for k, (img, valid, rel) in enumerate(lap_scans):
-            nk0 = len(sys_.kf_stamps)
-            t0 = time.perf_counter()
-            sys_.process_scan(img, valid, rel, base + k * PERIOD)
-            sync()
-            dt = time.perf_counter() - t0
-            if len(sys_.kf_stamps) > nk0:
-                kf_lat.append(dt)
-            if (lap * FRAMES_PER_LAP + k) % loop_every == 0:
-                n_solved0 = len(sys_.metrics.samples.get("graph_solve", []))
-                sys_.try_loop_closure()
-                gs = sys_.metrics.samples.get("graph_solve", [])
-                if len(gs) > n_solved0:
-                    solve_t.append(gs[-1])
-        lap += 1
-        if lap % 2 == 0:
-            # p50s over the two laps, so that a run cut short still shows the trend
-            log(f"lap {lap:4d}  kf={len(sys_.kf_stamps):6d}  closures={len(solve_t):4d} "
-                f"loops={int(sys_.graph.n_loops):3d}  rss={rss_mb():.0f}MB "
-                f"({time.time() - t_start:.0f}s)  kf p50 {p50(kf_lat[n_kf_logged:]) * 1e3:.1f} ms"
-                f"  solve p50 {p50(solve_t[n_solve_logged:]) * 1e3:.1f} ms")
-            n_kf_logged, n_solve_logged = len(kf_lat), len(solve_t)
-    return {"system": sys_, "kf_lat": kf_lat, "solve_t": solve_t, "laps": lap,
+    steps = GnSteps()
+    with steps:
+        while len(sys_.kf_stamps) < n_keyframes:
+            base = lap * LAP_T
+            keep = imu_s > 1e-9 if lap else np.ones_like(imu_s, bool)
+            sys_.push_imu(imu_s[keep] + base, imu_a[keep], imu_g[keep])
+            for k, (img, valid, rel) in enumerate(lap_scans):
+                nk0 = len(sys_.kf_stamps)
+                t0 = time.perf_counter()
+                sys_.process_scan(img, valid, rel, base + k * PERIOD)
+                sync()
+                dt = time.perf_counter() - t0
+                if len(sys_.kf_stamps) > nk0:
+                    kf_lat.append(dt)
+                if (lap * FRAMES_PER_LAP + k) % loop_every == 0:
+                    n_solved0 = len(sys_.metrics.samples.get("graph_solve", []))
+                    it0, nf0 = steps.iters, steps.nonfinite
+                    sys_.try_loop_closure()
+                    gs = sys_.metrics.samples.get("graph_solve", [])
+                    if len(gs) > n_solved0:
+                        solve_t.append(gs[-1])
+                        gn.append((steps.iters - it0, steps.nonfinite - nf0))
+            lap += 1
+            if lap % 2 == 0:
+                # p50s over the two laps, so that a run cut short still shows the trend
+                log(f"lap {lap:4d}  kf={len(sys_.kf_stamps):6d}  closures={len(solve_t):4d} "
+                    f"loops={int(sys_.graph.n_loops):3d}  rss={rss_mb():.0f}MB "
+                    f"({time.time() - t_start:.0f}s)  kf p50 "
+                    f"{p50(kf_lat[n_kf_logged:]) * 1e3:.1f} ms  solve p50 "
+                    f"{p50(solve_t[n_solve_logged:]) * 1e3:.1f} ms  GN steps "
+                    f"{sum(i for i, _ in gn[n_solve_logged:])} (non-finite "
+                    f"{sum(n for _, n in gn[n_solve_logged:])})")
+                n_kf_logged, n_solve_logged = len(kf_lat), len(solve_t)
+    return {"system": sys_, "kf_lat": kf_lat, "solve_t": solve_t, "gn": gn, "laps": lap,
             "frames": lap * FRAMES_PER_LAP, "rss0": rss0, "rss1": rss_mb(),
             "resident": sum(1 for c in sys_.kf_clouds if not isinstance(c, str)),
             "wall": time.time() - t_start}
@@ -188,6 +227,13 @@ def main(argv=None) -> int:
           f"{lat_last * 1e3:.1f} ms (ratio {lat_last / lat_first:.2f})")
     print(f"graph-solve p50: first-quartile {sol_first * 1e3:.1f} ms -> last-quartile "
           f"{sol_last * 1e3:.1f} ms (ratio {sol_last / max(sol_first, 1e-9):.2f})")
+    iters = [i for i, _ in r["gn"]]
+    if iters:
+        it_first, it_last = quartiles(iters)
+        print(f"graph-solve GN steps: {sum(iters)} in {len(iters)} solves (p50 {p50(iters):.0f}, "
+              f"max {max(iters)} a solve; p50 first-quartile {it_first:.0f} -> last-quartile "
+              f"{it_last:.0f}); non-finite steps (zeroed): {sum(n for _, n in r['gn'])} in "
+              f"{sum(1 for _, n in r['gn'] if n)} solves")
     inlock = sys_.metrics.samples.get("lc_inlock", [])
     if inlock:
         print(f"lc_inlock p50 {np.percentile(inlock, 50) * 1e3:.2f} ms "

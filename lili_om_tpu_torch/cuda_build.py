@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = {"knn": "knn.cu", "knn_pruned": "knn_pruned.cu", "segred": "segred.cu",
-           "lili_runtime": "lili_runtime.cc"}
+           "blocktri": "blocktri.cu", "lili_runtime": "lili_runtime.cc"}
 # the sources built by the host compiler, not by nvcc
 HOST_SOURCES = {"lili_runtime"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -13,8 +13,10 @@ Two solvers of the same Gauss-Newton problem:
 * :func:`optimize_graph`, dense (6N)² normal equations — the reference the
   tests hold the other against;
 * :func:`optimize_graph_chain`, linear in N: the chain factors make a
-  block-tridiagonal T, factored by block Thomas (a Python loop over the
-  nodes of 6×6 Cholesky solves), and the loop factors a low-rank U·Uᵀ
+  block-tridiagonal T, factored by block Thomas (``ops/blocktri.py``: on
+  the card one kernel walks the chain for the factor and one for each
+  resolve; on the CPU the plain loops over the nodes, with the JAX
+  package's clamped 6×6 Cholesky), and the loop factors a low-rank U·Uᵀ
   handled by the Woodbury identity. ``tol`` ends it once the largest
   per-node step is below ``tol`` (a host sync per iteration).
 
@@ -31,6 +33,7 @@ import torch
 
 from ..device import resolve_device
 from ..factors.lidar import relative_pose_residual
+from ..ops import blocktri
 from ..solver.gn import solve_normal
 from ..utils.math import (exp_so3, hat, pose_relative, quat_conj, quat_mul, quat_normalize,
                           quat_to_rotmat)
@@ -284,33 +287,14 @@ def block_tridiag_factor(D, B):
     """Block-Thomas factorization of the block-tridiagonal SPD T (diagonal
     blocks ``D`` (N,6,6), super-diagonal ``B`` (N,6,6) coupling i↔i+1;
     B[N-1] ignored). Returns ``(Lcs, Cs, B_prev)``, reusable for any number
-    of right-hand sides (:func:`block_tridiag_resolve`)."""
-    B_prev = torch.cat([torch.zeros_like(B[:1]), B[:-1]], dim=0)
-    C_prev = torch.zeros_like(D[0])
-    Lcs, Cs = [], []
-    for i in range(D.shape[0]):
-        S = D[i] - B_prev[i].transpose(-1, -2) @ C_prev
-        Lc = torch.linalg.cholesky_ex(S).L
-        C_prev = torch.cholesky_solve(B[i], Lc)
-        Lcs.append(Lc)
-        Cs.append(C_prev)
-    return torch.stack(Lcs), torch.stack(Cs), B_prev
+    of right-hand sides (:func:`block_tridiag_resolve`). The kernel on a
+    CUDA tensor, the plain loop on a CPU one (``ops/blocktri.py``)."""
+    return blocktri.block_tridiag_factor(D, B)
 
 
 def block_tridiag_resolve(factor, rhs):
     """Solve T·X = rhs (N,6,R) from a :func:`block_tridiag_factor`."""
-    Lcs, Cs, B_prev = factor
-    z = torch.zeros_like(rhs[0])
-    zs = []
-    for i in range(rhs.shape[0]):
-        z = torch.cholesky_solve(rhs[i] - B_prev[i].transpose(-1, -2) @ z, Lcs[i])
-        zs.append(z)
-    x = torch.zeros_like(rhs[0])
-    xs = [None] * rhs.shape[0]
-    for i in reversed(range(rhs.shape[0])):
-        x = zs[i] - Cs[i] @ x
-        xs[i] = x
-    return torch.stack(xs)
+    return blocktri.block_tridiag_resolve(factor, rhs)
 
 
 def block_tridiag_solve(D, B, rhs):
@@ -318,41 +302,61 @@ def block_tridiag_solve(D, B, rhs):
     return block_tridiag_resolve(block_tridiag_factor(D, B), rhs)
 
 
+def _shift(a):
+    return torch.cat([torch.zeros_like(a[:1]), a[:-1]], dim=0)
+
+
+def _chain_system(g: PoseGraph, t, q, diag_add):
+    """The GN normal equations at (t, q) as :func:`optimize_graph_chain`
+    solves them: the chain's block-tridiagonal T (diagonal ``D``,
+    super-diagonal ``Bblk``, ``diag_add`` on each diagonal), the gradient
+    ``gv`` (N,6) of every factor, and the loop factors' endpoints and
+    Jacobians ``(li, lj, Jli, Jlj)`` that make the low-rank U."""
+    (_, _, rc, Jci, Jcj), (li, lj, rl, Jli, Jlj) = _factors(g, t, q)
+    eye6 = torch.eye(6, dtype=t.dtype, device=t.device)
+    D = (torch.einsum("fab,fac->fbc", Jci, Jci)
+         + _shift(torch.einsum("fab,fac->fbc", Jcj, Jcj))
+         + eye6[None] * diag_add[:, None, None])
+    Bblk = torch.einsum("fab,fac->fbc", Jci, Jcj)  # couples i, i+1
+    gv = torch.einsum("fab,fa->fb", Jci, rc) + _shift(torch.einsum("fab,fa->fb", Jcj, rc))
+    gv = gv.index_add(0, li, torch.einsum("fab,fa->fb", Jli, rl))
+    gv = gv.index_add(0, lj, torch.einsum("fab,fa->fb", Jlj, rl))
+    return D, Bblk, gv, (li, lj, Jli, Jlj)
+
+
+def _loop_columns(N: int, loops):
+    """U's columns as a dense (N,6,6L): loop l's only nonzero node blocks
+    sit at rows li[l] and lj[l]."""
+    li, lj, Jli, Jlj = loops
+    L = li.shape[0]
+    U = torch.zeros((N, L, 6, 6), dtype=Jli.dtype, device=Jli.device)
+    cidx = torch.arange(L, device=Jli.device)
+    U.index_put_((li, cidx), Jli.transpose(-1, -2), accumulate=True)
+    U.index_put_((lj, cidx), Jlj.transpose(-1, -2), accumulate=True)
+    return U.permute(0, 2, 1, 3).reshape(N, 6, 6 * L)
+
+
 def optimize_graph_chain(g: PoseGraph, n_iters: int = 10, damping: float = 1e-6,
                          prior_weight: float = 1e4, tol: float = 0.0) -> PoseGraph:
     """GN with the linear-time chain + Woodbury solve; the same problem as
     :func:`optimize_graph`. ``tol`` > 0: stop once the largest per-node
     tangent step drops below ``tol`` (one host sync per iteration); 0 runs
-    the fixed ``n_iters``."""
+    the fixed ``n_iters``. U's 6L columns are resolved against the factor
+    in one shot (the JAX package's ``loop_chunk`` opt-in is not ported:
+    ROADMAP §A)."""
     N, L = g.t.shape[0], g.loop_i.shape[0]
     dtype, dev = g.t.dtype, g.t.device
     diag_add = _anchor_freeze(g, prior_weight) + damping
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    cidx = torch.arange(L, device=dev)
-
-    def shift(a):
-        return torch.cat([torch.zeros_like(a[:1]), a[:-1]], dim=0)
 
     def gn_iter(t, q):
-        (_, _, rc, Jci, Jcj), (li, lj, rl, Jli, Jlj) = _factors(g, t, q)
-        D = (torch.einsum("fab,fac->fbc", Jci, Jci)
-             + shift(torch.einsum("fab,fac->fbc", Jcj, Jcj))
-             + eye6[None] * diag_add[:, None, None])
-        Bblk = torch.einsum("fab,fac->fbc", Jci, Jcj)  # couples i, i+1
-        gv = torch.einsum("fab,fa->fb", Jci, rc) + shift(torch.einsum("fab,fa->fb", Jcj, rc))
-        gv = gv.index_add(0, li, torch.einsum("fab,fa->fb", Jli, rl))
-        gv = gv.index_add(0, lj, torch.einsum("fab,fa->fb", Jlj, rl))
-
+        D, Bblk, gv, loops = _chain_system(g, t, q, diag_add)
         factor = block_tridiag_factor(D, Bblk)
         y0 = block_tridiag_resolve(factor, -gv[:, :, None])[..., 0]
         if L == 0:
             x = y0
         else:
-            # U's only nonzero node blocks for loop l sit at rows li[l], lj[l]
-            U = torch.zeros((N, L, 6, 6), dtype=dtype, device=dev)
-            U.index_put_((li, cidx), Jli.transpose(-1, -2), accumulate=True)
-            U.index_put_((lj, cidx), Jlj.transpose(-1, -2), accumulate=True)
-            Yu = block_tridiag_resolve(factor, U.permute(0, 2, 1, 3).reshape(N, 6, 6 * L))
+            li, lj, Jli, Jlj = loops
+            Yu = block_tridiag_resolve(factor, _loop_columns(N, loops))
             K = torch.eye(6 * L, dtype=dtype, device=dev) + (
                 torch.einsum("lba,las->lbs", Jli, Yu[li])
                 + torch.einsum("lba,las->lbs", Jlj, Yu[lj])).reshape(6 * L, 6 * L)

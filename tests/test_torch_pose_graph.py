@@ -4,9 +4,13 @@ JAX package's, in float64, on the graphs of tests/test_pose_graph.py.
 Tolerance 1e-9: the same Gauss-Newton problem with the same Jacobians
 (``jax.jacfwd`` through the retraction on the JAX side, the same
 derivatives written out in the port, equal to ~1e-15); what differs is the
-order of the sums and the small solves (LAPACK Cholesky in the port,
-unrolled 6×6 algebra in the JAX chain solver), a few ulps per step on
-well-conditioned systems.
+order of the sums (the 6×6 Cholesky and triangular solves take the JAX
+package's operations in its order, ``ops/blocktri.py``), a few ulps per
+step on well-conditioned systems.
+
+The block-tridiagonal factor and resolve are also held on their own, their
+non-positive pivot included, and, on the card, the CUDA kernels of
+``csrc/blocktri.cu`` against their plain versions.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +25,7 @@ from lili_om_tpu.utils.math import quat_normalize as jnorm
 from lili_om_tpu.utils.math import quat_rotate as jrot
 from lili_om_tpu_torch import interop
 from lili_om_tpu_torch.models import pose_graph as TG
+from lili_om_tpu_torch.ops import blocktri as BT
 from test_torch_common import CPU, assert_close_dicts, npy, tree_dict, tt
 
 TOL = 1e-9
@@ -69,10 +74,10 @@ def drifted_square():
     return jg, tg, ts
 
 
-def noisy_graph(n=24, n_loops=2, seed=7):
+def noisy_graph(n=24, n_loops=2, seed=7, loop_capacity=4):
     """tests/test_pose_graph.py's random chain with loops, perturbed."""
     rng = np.random.default_rng(seed)
-    g = JG.init_graph(32, loop_capacity=4, dtype=jnp.float64)
+    g = JG.init_graph(32, loop_capacity=loop_capacity, dtype=jnp.float64)
     t, qs = np.zeros(3), [np.array([1.0, 0, 0, 0])]
     for i in range(n):
         g = JG.ensure_capacity(g, i + 1)
@@ -152,13 +157,16 @@ def test_dense_solver_matches_jax():
     assert err_after.mean() < 0.5 * err_before.mean()
 
 
-@pytest.mark.parametrize("n_loops,tol", [(2, 0.0), (0, 0.0), (2, 1e-3)],
-                         ids=["loops", "chain_only", "loops_tol"])
-def test_chain_solver_matches_jax(n_loops, tol):
+@pytest.mark.parametrize(
+    "n_loops,tol,loop_cap",
+    [(2, 0.0, 4), (0, 0.0, 4), (2, 1e-3, 4), (5, 0.0, 8)],
+    ids=["loops", "chain_only", "loops_tol", "L8_one_shot"])
+def test_chain_solver_matches_jax(n_loops, tol, loop_cap):
     """optimize_graph_chain (block Thomas + Woodbury), with and without
-    loops and with the step-norm early exit, against the JAX chain solver;
-    and, at a fixed iteration count, against the port's dense solver."""
-    jg = noisy_graph(n_loops=n_loops)
+    loops (five of eight slots, three unused) and with the step-norm early
+    exit, against the JAX chain solver; and, at a fixed iteration count,
+    against the port's dense solver."""
+    jg = noisy_graph(n_loops=n_loops, loop_capacity=loop_cap)
     tg = _to_port(jg)
     j2 = JG.optimize_graph_chain(jg, n_iters=8, tol=tol)
     t2 = TG.optimize_graph_chain(tg, n_iters=8, tol=tol)
@@ -169,24 +177,163 @@ def test_chain_solver_matches_jax(n_loops, tol):
         np.testing.assert_allclose(npy(t2.t), npy(td.t), atol=TOL)
 
 
-def test_block_tridiag_solve_matches_jax_and_numpy():
-    rng = np.random.default_rng(11)
-    N = 12
+def _tridiag_case(N=12, R=3, seed=11):
+    """(D, B, rhs) of a well-conditioned block-tridiagonal SPD system."""
+    rng = np.random.default_rng(seed)
     Bs = rng.normal(size=(N, 6, 6)) * 0.1
     Ds = np.stack([np.eye(6) * 4 + rng.normal(size=(6, 6)) * 0.05 for _ in range(N)])
     Ds = 0.5 * (Ds + Ds.transpose(0, 2, 1))
+    return Ds, Bs, rng.normal(size=(N, 6, R))
+
+
+def test_block_tridiag_solve_matches_jax_and_numpy():
+    Ds, Bs, rhs = _tridiag_case()
+    N = Ds.shape[0]
     T = np.zeros((6 * N, 6 * N))
     for i in range(N):
         T[6 * i:6 * i + 6, 6 * i:6 * i + 6] = Ds[i]
         if i + 1 < N:
             T[6 * i:6 * i + 6, 6 * i + 6:6 * i + 12] = Bs[i]
             T[6 * i + 6:6 * i + 12, 6 * i:6 * i + 6] = Bs[i].T
-    rhs = rng.normal(size=(N, 6, 3))
     X = npy(TG.block_tridiag_solve(tt(Ds), tt(Bs), tt(rhs)))
     np.testing.assert_allclose(X, np.asarray(JG.block_tridiag_solve(Ds, Bs, rhs)),
                                rtol=TOL, atol=TOL)
     np.testing.assert_allclose(X.reshape(6 * N, 3), np.linalg.solve(T, rhs.reshape(-1, 3)),
                                rtol=1e-8, atol=1e-8)
+
+
+# float64: the same operations in the same order but for the 6-term
+# products' summation (torch's matmul against XLA's dot), a few ulps of the
+# O(1) entries. float32: the jitted JAX scan and the port's op-by-op loop
+# round differently (fused products, another summation order), ~1e-7 of
+# the entries per step over 12 steps of a well-conditioned chain.
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)],
+                         ids=["f64", "f32"])
+def test_block_tridiag_factor_and_resolve_match_jax(dtype, tol):
+    """The batched 6×6 Cholesky and solve, the factor's Lcs and Cs, its
+    B_prev, and the resolve of a factor, each held on its own against the
+    JAX functions and scans (N = 12)."""
+    Ds, Bs, rhs = _tridiag_case(R=5)
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    jL = JG._chol6(jnp.asarray(Ds, jdt))
+    tL = BT.chol6(tt(Ds, dtype))
+    np.testing.assert_allclose(npy(tL), np.asarray(jL), rtol=tol, atol=tol)
+    np.testing.assert_allclose(npy(BT.cho_solve6(tL, tt(Bs, dtype))),
+                               np.asarray(JG._cho_solve6(jL, jnp.asarray(Bs, jdt))),
+                               rtol=tol, atol=tol)
+    jf = JG.block_tridiag_factor(jnp.asarray(Ds, jdt), jnp.asarray(Bs, jdt))
+    tf = BT.block_tridiag_factor(tt(Ds, dtype), tt(Bs, dtype))
+    for name, a, b in zip(("Lcs", "Cs", "B_prev"), jf, tf):
+        assert b.dtype == dtype and b.shape == (12, 6, 6), name
+        np.testing.assert_allclose(npy(b), np.asarray(a), rtol=tol, atol=tol, err_msg=name)
+    assert not npy(tf[0])[:, np.triu_indices(6, 1)[0], np.triu_indices(6, 1)[1]].any()
+    jx = JG.block_tridiag_resolve(jf, jnp.asarray(rhs, jdt))
+    tx = BT.block_tridiag_resolve(tf, tt(rhs, dtype))
+    np.testing.assert_allclose(npy(tx), np.asarray(jx), rtol=tol, atol=tol)
+
+
+def _pivot_case(N=4):
+    """(D, B, rhs) whose node-2 block meets a pivot of -1 in its Cholesky."""
+    D = np.stack([4.0 * np.eye(6)] * N)
+    D[2, 3, 3] = -1.0
+    B = 0.1 * np.random.default_rng(0).normal(size=(N, 6, 6))
+    rhs = np.random.default_rng(1).normal(size=(N, 6, 1))
+    return D, B, rhs
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_block_tridiag_nonpositive_pivot_matches_jax(dtype):
+    """A diagonal block whose Cholesky meets a pivot of -1 (node 2): the
+    JAX package clamps it to sqrt(1e-30) and the solve turns non-finite,
+    which ``_clamp_step`` turns into the zero step, so no node moves. The
+    port takes the same clamp (LAPACK's ``cholesky_ex`` would leave the
+    entry unfactored and give finite garbage, a step applied up to 1 m and
+    0.3 rad a node): non-finite at the same nodes, the zero step in both,
+    in float64 and in the soak's float32."""
+    D, B, rhs = _pivot_case()
+    N = D.shape[0]
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    jD, jB, jr = (jnp.asarray(a, jdt) for a in (D, B, rhs))
+    jx = np.asarray(JG.block_tridiag_solve(jD, jB, jr))
+    tx = npy(TG.block_tridiag_solve(tt(D, dtype), tt(B, dtype), tt(rhs, dtype)))
+    np.testing.assert_array_equal(np.isfinite(npy(BT.chol6(tt(D, dtype)))),
+                                  np.isfinite(np.asarray(JG._chol6(jD))))
+    j_bad = ~np.isfinite(jx).reshape(N, -1).all(axis=1)
+    assert j_bad.any()
+    np.testing.assert_array_equal(~np.isfinite(tx).reshape(N, -1).all(axis=1), j_bad)
+    np.testing.assert_array_equal(np.isfinite(tx), np.isfinite(jx))
+    j_step = np.asarray(JG._clamp_step(jnp.asarray(jx[..., 0])))
+    t_step = npy(TG._clamp_step(tt(tx[..., 0], dtype)))
+    assert not j_step.any() and not t_step.any()
+
+
+def test_block_tridiag_cpu_takes_the_plain_version():
+    """The dispatchers: a CPU tensor takes the plain loops (the same values)
+    and counts no kernel launch; the kernel wrappers refuse CPU tensors."""
+    Ds, Bs, rhs = _tridiag_case(N=5, R=2)
+    D, B, r = tt(Ds), tt(Bs), tt(rhs)
+    BT.reset_launch_counts()
+    f = BT.block_tridiag_factor(D, B)
+    x = BT.block_tridiag_resolve(f, r)
+    assert BT.launch_count() == 0 and not BT.LAUNCHES
+    fp = BT.block_tridiag_factor_plain(D, B)
+    for a, b in zip(f, fp):
+        assert torch.equal(a, b)
+    assert torch.equal(x, BT.block_tridiag_resolve_plain(fp, r))
+    with pytest.raises(ValueError):
+        BT.block_tridiag_factor_cuda(D, B)
+    with pytest.raises(ValueError):
+        BT.block_tridiag_resolve_cuda(fp, r)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode "
+                    "(chip_smoke.py holds them against the plain versions on the card)")
+    return torch.device("cuda")
+
+
+# the kernels take the plain versions' operations in their order, but sum
+# the 6-term products as FMA chains: float32 1e-5 and float64 1e-12 of the
+# largest entry over a 300-node chain
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_cuda_kernels_match_plain(cuda, dtype, tol):
+    """On the card: the factor and the resolve kernels (more columns than a
+    block holds) against the plain versions, a launch counted each."""
+    Ds, Bs, rhs = _tridiag_case(N=300, R=BT.RESOLVE_COLS + 5, seed=3)
+    D, B, r = (tt(a, dtype).to(cuda) for a in (Ds, Bs, rhs))
+    BT.reset_launch_counts()
+    fk = BT.block_tridiag_factor(D, B)
+    xk = BT.block_tridiag_resolve(fk, r)
+    torch.cuda.synchronize()
+    assert BT.launch_count("blocktri_factor") == 1 and BT.launch_count("blocktri_resolve") == 1
+    fp = BT.block_tridiag_factor_plain(D, B)
+    xp = BT.block_tridiag_resolve_plain(fp, r)
+    for a, b in list(zip(fk, fp)) + [(xk, xp)]:
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_cuda_kernels_nonpositive_pivot_match_plain(cuda, dtype, tol):
+    """On the card, the pivot case of the CPU test: the kernels' clamp gives
+    the plain version's non-finite entries (so JAX's) in Lcs, Cs and the
+    solve, its finite entries within the tolerance above, and the zero
+    step after ``_clamp_step``."""
+    D, B, r = (tt(a, dtype).to(cuda) for a in _pivot_case())
+    fk = BT.block_tridiag_factor(D, B)
+    xk = BT.block_tridiag_resolve(fk, r)
+    fp = BT.block_tridiag_factor_plain(D, B)
+    xp = BT.block_tridiag_resolve_plain(fp, r)
+    assert not bool(torch.isfinite(xp).all())
+    for a, b in list(zip(fk[:2], fp[:2])) + [(xk, xp)]:
+        fin = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), fin)
+        assert float((a - b)[fin].abs().max()) <= tol * float(b[fin].abs().max())
+    step_k, step_p = TG._clamp_step(xk[..., 0]), TG._clamp_step(xp[..., 0])
+    assert not bool(step_k.any()) and not bool(step_p.any())
 
 
 def test_extract_suffix_matches_jax():

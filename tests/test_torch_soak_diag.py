@@ -140,6 +140,29 @@ def test_soak_matches_jax(monkeypatch, tmp_path, capsys):
                 f"loop factors: {int(t.graph.n_loops)}") in out
         assert re.search(r"^SOAK PASS$", out, re.M)
     assert "resident surf archives" in out_t
+    # every solve's GN steps counted, none of them zeroed for a non-finite entry
+    steps = re.search(r"^graph-solve GN steps: (\d+) in (\d+) solves .*non-finite steps "
+                      r"\(zeroed\): (\d+) in (\d+) solves$", out_t, re.M)
+    assert steps and int(steps[2]) == n_solved and int(steps[1]) >= n_solved
+    assert steps[3] == steps[4] == "0"
+
+
+def test_soak_counts_gn_steps():
+    """``GnSteps``: one step a GN iteration of the chain solver, a step with
+    a non-finite entry counted as such, ``_clamp_step`` restored after."""
+    from lili_om_tpu_torch.models import pose_graph as TG
+
+    clamp = TG._clamp_step
+    g = TG.init_graph(8, 4, dtype=torch.float64, device="cpu")
+    for i in range(6):
+        g = TG.add_node(g, torch.tensor([0.5 * i, 0.1 * i * i, 0.0], dtype=torch.float64),
+                        torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float64))
+    with soak_long_run.GnSteps() as steps:
+        TG.optimize_graph_chain(g, n_iters=3)
+        assert (steps.iters, steps.nonfinite) == (3, 0)
+        zero = TG._clamp_step(torch.full((2, 6), float("nan"), dtype=torch.float64))
+        assert (steps.iters, steps.nonfinite) == (4, 1) and not bool(zero.any())
+    assert TG._clamp_step is clamp
 
 
 def test_soak_verdict_invariants():
