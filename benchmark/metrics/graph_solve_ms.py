@@ -1,0 +1,9 @@
+"""``graph_solve_ms``: the mean of the program's ``graph_solve`` stage (one sample a closure that fired)
+over the window's sessions, from ``LiliOmSystem.metrics`` (host clock,
+each sample ending in a synchronize), in ms. Nothing to read: no sample."""
+from lom_bench.stats import mean
+
+
+def read(ctx):
+    m = mean(ctx.stages.get("graph_solve", []))
+    return None if m is None else 1e3 * m
