@@ -44,6 +44,7 @@ from ..ops.preintegration import (ImuNoise, Preint, init_preint, integrate_paral
 from ..ops.voxel import merge_voxel_entries, voxel_downsample
 from ..solver.gn import solve_normal, solve_normal_lm
 from ..utils.math import quat_conj, quat_mul, quat_normalize, quat_rotate, unify_quaternion
+from ..utils.metrics import count, host_read, span
 
 
 class FusionConfig(NamedTuple):
@@ -519,6 +520,7 @@ def _set_row(x: torch.Tensor, i: torch.Tensor, value) -> torch.Tensor:
     return x
 
 
+@span("fusion.ingest")
 def _ingest(state: FusionState, surf_pts, surf_mask, surf_refl, edge_pts, edge_mask,
             imu_dts, imu_accs, imu_gyrs, imu_valid, cfg: FusionConfig,
             noise: ImuNoise, rebuild: bool = False) -> FusionMid:
@@ -656,29 +658,33 @@ def _finish(state: FusionState, mid: FusionMid, surf_batches, edge_batches,
                          noise, cfg, imu_first_only=imu_first_only)
 
     cur = (ts, qs, vs, bas, bgs)
-    if warmup:
-        pass
-    elif cfg.gn_tol > 0.0:
-        # adaptive LM: λ grows ×lm_up when the step norm grows, decays
-        # ×lm_down on contraction; host loop on the step norm
-        adaptive = cfg.lm_lam0 > 0.0
-        prev_step = torch.tensor(float("inf"), dtype=dtype, device=dev)
-        lam = torch.tensor(cfg.lm_lam0, dtype=dtype, device=dev)
-        for _ in range(cfg.max_num_iter):
-            H, g = assemble(*cur, sb_anchor)
-            delta = solve_normal_lm(H, -g, lam) if adaptive else \
-                solve_normal(H, -g, cfg.damping)
-            step = torch.linalg.norm(delta)
-            lam = torch.clamp(torch.where(step > prev_step, lam * cfg.lm_up,
-                                          lam * cfg.lm_down), 1e-8, cfg.lm_max)
-            cur = _retract_window(*cur, delta)
-            prev_step = step
-            if not bool(step > cfg.gn_tol):
-                break
-    else:
-        for _ in range(cfg.max_num_iter):
-            H, g = assemble(*cur, sb_anchor)
-            cur = _retract_window(*cur, solve_normal(H, -g, cfg.damping))
+    if not warmup:
+        with span("fusion.solve"):
+            n_iter = cfg.max_num_iter
+            if cfg.gn_tol > 0.0:
+                # adaptive LM: λ grows ×lm_up when the step norm grows, decays
+                # ×lm_down on contraction; host loop on the step norm
+                adaptive = cfg.lm_lam0 > 0.0
+                prev_step = torch.tensor(float("inf"), dtype=dtype, device=dev)
+                lam = torch.tensor(cfg.lm_lam0, dtype=dtype, device=dev)
+                for n_iter in range(1, cfg.max_num_iter + 1):
+                    H, g = assemble(*cur, sb_anchor)
+                    delta = solve_normal_lm(H, -g, lam) if adaptive else \
+                        solve_normal(H, -g, cfg.damping)
+                    step = torch.linalg.norm(delta)
+                    lam = torch.clamp(torch.where(step > prev_step, lam * cfg.lm_up,
+                                                  lam * cfg.lm_down), 1e-8, cfg.lm_max)
+                    cur = _retract_window(*cur, delta)
+                    prev_step = step
+                    with host_read("fusion_lm"):
+                        go_on = bool(step > cfg.gn_tol)
+                    if not go_on:
+                        break
+            else:
+                for _ in range(cfg.max_num_iter):
+                    H, g = assemble(*cur, sb_anchor)
+                    cur = _retract_window(*cur, solve_normal(H, -g, cfg.damping))
+        count("fusion.lm_iters", n_iter)
     ts1, qs1, vs1, bas1, bgs1 = cur
     qs1 = unify_quaternion(qs1)
 
@@ -759,14 +765,15 @@ def fusion_step(state: FusionState, surf_pts, surf_mask, surf_refl, edge_pts, ed
     if warmup:
         surf_batches, edge_batches = _zero_batches(mid, dtype)
     else:
-        # the map comes from the pre-insert ring (the reference's local map
-        # leaves out the incoming keyframe)
-        if match_fn is None and cfg.incremental_map:
-            surf_batches, edge_batches, enough_map = _match_with_maps(mid, cfg)
-        else:
-            surf_batches, edge_batches, enough_map = (match_fn or default_map_and_match)(
-                state, mid.ts, mid.qs, mid.win_surf_b, mid.win_surf_mask, mid.win_surf_refl,
-                mid.win_edge_b, mid.win_edge_mask, cfg)
-        surf_batches, edge_batches = gate_batches(surf_batches, edge_batches, enough_map,
-                                                  dtype)
+        with span("fusion.match"):
+            # the map comes from the pre-insert ring (the reference's local
+            # map leaves out the incoming keyframe)
+            if match_fn is None and cfg.incremental_map:
+                surf_batches, edge_batches, enough_map = _match_with_maps(mid, cfg)
+            else:
+                surf_batches, edge_batches, enough_map = (match_fn or default_map_and_match)(
+                    state, mid.ts, mid.qs, mid.win_surf_b, mid.win_surf_mask,
+                    mid.win_surf_refl, mid.win_edge_b, mid.win_edge_mask, cfg)
+            surf_batches, edge_batches = gate_batches(surf_batches, edge_batches, enough_map,
+                                                      dtype)
     return _finish(state, mid, surf_batches, edge_batches, cfg, noise, warmup)

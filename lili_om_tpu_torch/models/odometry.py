@@ -25,6 +25,7 @@ from ..ops.voxel import merge_voxel_entries, voxel_downsample
 from ..solver.gn import block_hessian, solve_normal
 from ..utils.math import (exp_so3, pose_relative, quat_conj, quat_mul, quat_normalize,
                           quat_rotate, unify_quaternion)
+from ..utils.metrics import count, host_read
 
 
 class OdometryConfig(NamedTuple):
@@ -177,15 +178,19 @@ def _fit_and_gn(t, q, scan_q, scan_q_mask, pw, nbrs, d2, cfg: OdometryConfig,
         return t + delta[:3], quat_normalize(quat_mul(q, exp_so3(delta[3:6]))), \
             torch.linalg.norm(delta)
 
+    n_steps = cfg.gn_iters
     if cfg.gn_tol > 0.0:
         # host loop: stops where the JAX while_loop stops (one sync per step)
-        for _ in range(cfg.gn_iters):
+        for n_steps in range(1, cfg.gn_iters + 1):
             t, q, step = gn_step(t, q)
-            if not bool(step > cfg.gn_tol):
+            with host_read("odometry_gn"):
+                go_on = bool(step > cfg.gn_tol)
+            if not go_on:
                 break
     else:
         for _ in range(cfg.gn_iters):
             t, q, _ = gn_step(t, q)
+    count("odometry.gn_steps", n_steps)
     n_corr = torch.sum(batch.mask.to(torch.int32)).to(torch.int32)
     return t, q, n_corr if reduce is None else reduce(n_corr)
 

@@ -37,6 +37,7 @@ from ..ops import blocktri
 from ..solver.gn import solve_normal
 from ..utils.math import (exp_so3, hat, pose_relative, quat_conj, quat_mul, quat_normalize,
                           quat_to_rotmat)
+from ..utils.metrics import host_read
 
 
 class PoseGraph(NamedTuple):
@@ -371,8 +372,11 @@ def optimize_graph_chain(g: PoseGraph, n_iters: int = 10, damping: float = 1e-6,
     t, q = g.t, g.q
     for _ in range(n_iters):
         t, q, step = gn_iter(t, q)
-        if tol > 0.0 and not bool(step > tol):
-            break
+        if tol > 0.0:
+            with host_read("graph_gn"):
+                go_on = bool(step > tol)
+            if not go_on:
+                break
     return g._replace(t=t, q=q)
 
 
@@ -409,8 +413,9 @@ def extract_suffix(g: PoseGraph, base: int, n: int) -> PoseGraph:
     valid loop endpoints must be ≥ base (true when ``base`` comes from
     :func:`affected_base`)."""
     length = n - base
-    n_loops = int(g.n_loops)
-    h = {k: v.cpu().numpy() for k, v in g._asdict().items()}
+    with host_read("graph_suffix"):
+        n_loops = int(g.n_loops)
+        h = {k: v.cpu().numpy() for k, v in g._asdict().items()}
     sub = {k: v.cpu().numpy().copy() for k, v in init_graph(
         _pow2_at_least(length), _pow2_at_least(max(n_loops, 1), floor=8),
         dtype=g.t.dtype, device="cpu")._asdict().items()}
@@ -437,8 +442,9 @@ def solve_graph_incremental(g: PoseGraph, n: int, loop_pairs, n_iters: int = 10,
     """Suffix-restricted, early-exit global solve on the graph's device.
     Returns host numpy (t (n,3), q (n,4)): the corrected poses of nodes
     [0, n), the prefix unchanged. A pure function of ``g``."""
-    t = g.t[:n].cpu().numpy().copy()
-    q = g.q[:n].cpu().numpy().copy()
+    with host_read("graph_suffix"):
+        t = g.t[:n].cpu().numpy().copy()
+        q = g.q[:n].cpu().numpy().copy()
     base = affected_base(loop_pairs)
     if base < 0:  # no loop factors: the chain is at its optimum
         return t, q
@@ -447,6 +453,7 @@ def solve_graph_incremental(g: PoseGraph, n: int, loop_pairs, n_iters: int = 10,
     # stands in for the whole solved prefix
     solved = optimize_graph_chain(sub, n_iters=n_iters, tol=tol, damping=damping,
                                   prior_weight=1e6)
-    t[base:] = solved.t[:n - base].cpu().numpy()
-    q[base:] = solved.q[:n - base].cpu().numpy()
+    with host_read("graph_suffix"):
+        t[base:] = solved.t[:n - base].cpu().numpy()
+        q[base:] = solved.q[:n - base].cpu().numpy()
     return t, q

@@ -15,7 +15,11 @@ On the card every stage time of :attr:`LiliOmSystem.metrics` ends with a
 synchronize, so it is the stage's own time there. Stages: ``preprocess``,
 ``odometry`` and ``backend`` per scan (``fusion`` and ``densify`` inside
 ``backend``); ``submaps``, ``icp``, ``graph_solve`` and ``lc_inlock`` per
-closure attempt.
+closure attempt. Inside them the free functions record the fusion's
+sub-spans, the LM iterations and GN steps, and every explicit device read
+the host makes (``host_read.<site>``; ``utils/metrics.py``); under
+``torch.profiler`` each scan and attempt is a ``lom.scan`` / ``lom.closure``
+span holding its stages.
 
 Two sensor variants share the backend: a spinning LiDAR's organized sweep
 goes through :meth:`LiliOmSystem.process_scan`, a Livox Horizon's flat point
@@ -68,7 +72,7 @@ from ..ops.voxel import pad_cloud, voxel_downsample, voxel_downsample_np
 from ..utils.config import LoopClosureConfig
 from ..utils.math import (pose_relative, quat_conj_np, quat_mul, quat_mul_np, quat_normalize,
                           quat_normalize_np, quat_rotate, quat_rotate_np)
-from ..utils.metrics import StageMetrics
+from ..utils.metrics import StageMetrics, host_read
 from .fusion import FusionConfig, fusion_step, init_fusion_state
 from .local_graph import optimize_local_chain, propagate_interval
 from .odometry import OdometryConfig, init_state as init_odo_state, odometry_step
@@ -78,8 +82,15 @@ from .pose_graph import (add_loop, add_node, ensure_capacity, init_graph,
 __all__ = ["LiliOmSystem", "LivoxKeyframePayload", "LoopClosureConfig", "mesh_configs"]
 
 
-def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+def _np(x, site: str | None = None) -> np.ndarray:
+    """``x`` on the host. ``site``: a device read of the main path, recorded
+    as ``host_read.<site>`` of the current metrics (utils/metrics.py)."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    if site is None:
+        return x.detach().cpu().numpy()
+    with host_read(site):
+        return x.detach().cpu().numpy()
 
 
 def mesh_configs(odo_cfg: OdometryConfig, fusion_cfg: FusionConfig, n: int):
@@ -349,30 +360,32 @@ class LiliOmSystem:
         frontend output; with ``defer_backend``, ``(out, clouds or None)``
         and the keyframe goes to :meth:`process_keyframe` later."""
         self.metrics.count_scan()
-        img = self._tensor(img)
-        rel_time = self._tensor(rel_time)
-        with self.metrics.stage("preprocess"):
-            dts, gyrs, imu_mask = self._gyro_slice_padded(stamp)
-            t_scan = self._tensor(self._last_rel_t if self.deskew_translation else np.zeros(3))
-            fcfg = (self.feat_cfg._replace(carry_rel_time=True) if self.if_to_deskew
-                    else self.feat_cfg)
-            fc = _preprocess_spin(img, self._tensor(valid, torch.bool), rel_time, dts, gyrs,
-                                  imu_mask, t_scan, self._tensor(self.fusion_cfg.q_lb), fcfg,
-                                  self.device)
-        out, summary = self._odometry(fc.surf_pts, fc.surf_mask, stamp,
-                                      "check n_cols/ring mapping and feature thresholds")
-        if self.if_to_deskew and out.is_keyframe:
-            rt = self._tensor(summary[3:6])
-            fc = fc._replace(surf_pts=_reskew(fc.surf_pts, fc.surf_rel_time, rt),
-                             edge_pts=_reskew(fc.edge_pts, fc.edge_rel_time, rt),
-                             full_pts=_reskew(fc.full_pts, fc.full_rel_time, rt))
-        if defer_backend:
-            return out, (fc if out.is_keyframe else None)
-        if out.is_keyframe:
-            with self.metrics.stage("backend"):
-                self._on_keyframe(fc, stamp)
-        self._maybe_publish_map(stamp)
-        return out
+        with self.metrics.entry("scan", self.n_frames):
+            img = self._tensor(img)
+            rel_time = self._tensor(rel_time)
+            with self.metrics.stage("preprocess"):
+                dts, gyrs, imu_mask = self._gyro_slice_padded(stamp)
+                t_scan = self._tensor(self._last_rel_t if self.deskew_translation
+                                      else np.zeros(3))
+                fcfg = (self.feat_cfg._replace(carry_rel_time=True) if self.if_to_deskew
+                        else self.feat_cfg)
+                fc = _preprocess_spin(img, self._tensor(valid, torch.bool), rel_time, dts, gyrs,
+                                      imu_mask, t_scan, self._tensor(self.fusion_cfg.q_lb), fcfg,
+                                      self.device)
+            out, summary = self._odometry(fc.surf_pts, fc.surf_mask, stamp,
+                                          "check n_cols/ring mapping and feature thresholds")
+            if self.if_to_deskew and out.is_keyframe:
+                rt = self._tensor(summary[3:6])
+                fc = fc._replace(surf_pts=_reskew(fc.surf_pts, fc.surf_rel_time, rt),
+                                 edge_pts=_reskew(fc.edge_pts, fc.edge_rel_time, rt),
+                                 full_pts=_reskew(fc.full_pts, fc.full_rel_time, rt))
+            if defer_backend:
+                return out, (fc if out.is_keyframe else None)
+            if out.is_keyframe:
+                with self.metrics.stage("backend"):
+                    self._on_keyframe(fc, stamp)
+            self._maybe_publish_map(stamp)
+            return out
 
     def _odometry(self, surf, surf_mask, stamp: float, starved_hint: str):
         """Scan-to-map odometry, then one host transfer of what the frame's
@@ -392,7 +405,7 @@ class LiliOmSystem:
                                                     device=self.device)
         self.n_frames += 1
         summary = _np(torch.cat([out.t, out.rel_t, torch.stack([
-            out.is_keyframe.to(self.dtype), out.n_corr.to(self.dtype)])]))
+            out.is_keyframe.to(self.dtype), out.n_corr.to(self.dtype)])]), "odometry")
         out = out._replace(is_keyframe=bool(summary[6] > 0.5))
         self.trajectory.append(summary[0:3])
         self._frame_stamps.append(stamp)
@@ -433,57 +446,67 @@ class LiliOmSystem:
         ``livox_cfg.n_cols`` must match the stream's points per line per
         sweep, or the extractor starves (``ops/features_livox.py``)."""
         self.metrics.count_scan()
-        pts = self._tensor(pts)
-        ratio = self._tensor(ratio)
-        valid = self._tensor(valid, torch.bool)
-        with self.metrics.stage("preprocess"):
-            pts = self._undistort_with_buffer(pts, ratio, stamp)
-            img, img_curv, img_valid = bin_livox_image(
-                pts, self._tensor(line, torch.int32), ratio, 0.1 * self._tensor(refl), valid,
-                self.livox_cfg)
-            lf = extract_features_livox(img, img_curv, img_valid, self.livox_cfg,
-                                        device=self.device)
-            # the surf set bounded to the odometry capacity by a 0.3 m voxel
-            # downsample; the reflectivity (and under if_to_deskew the point
-            # time) is averaged alongside, as PCL's VoxelGrid averages intensity
-            feats = (torch.stack([lf.surf_curv, lf.surf_rel_time], dim=1) if self.if_to_deskew
-                     else lf.surf_curv[:, None])
-            surf, surf_refl, surf_mask = voxel_downsample(lf.surf_pts, lf.surf_mask, 0.3,
-                                                          self.odo_cfg.scan_cap, feats=feats)
-        out, summary = self._odometry(surf, surf_mask, stamp,
-                                      "check feature thresholds and scan binning")
+        with self.metrics.entry("scan", self.n_frames):
+            pts = self._tensor(pts)
+            ratio = self._tensor(ratio)
+            valid = self._tensor(valid, torch.bool)
+            with self.metrics.stage("preprocess"):
+                pts = self._undistort_with_buffer(pts, ratio, stamp)
+                img, img_curv, img_valid = bin_livox_image(
+                    pts, self._tensor(line, torch.int32), ratio, 0.1 * self._tensor(refl), valid,
+                    self.livox_cfg)
+                lf = extract_features_livox(img, img_curv, img_valid, self.livox_cfg,
+                                            device=self.device)
+                # the surf set bounded to the odometry capacity by a 0.3 m voxel
+                # downsample; the reflectivity (and under if_to_deskew the point
+                # time) is averaged alongside, as PCL's VoxelGrid averages intensity
+                feats = (torch.stack([lf.surf_curv, lf.surf_rel_time], dim=1) if self.if_to_deskew
+                         else lf.surf_curv[:, None])
+                surf, surf_refl, surf_mask = voxel_downsample(lf.surf_pts, lf.surf_mask, 0.3,
+                                                              self.odo_cfg.scan_cap, feats=feats)
+            out, summary = self._odometry(surf, surf_mask, stamp,
+                                          "check feature thresholds and scan binning")
 
-        payload = None
-        if out.is_keyframe:
-            edge, edge_mask = pad_cloud(lf.edge_pts, lf.edge_mask, self.fusion_cfg.kf_edge_cap)
-            full, surf_kf = pts, surf
-            if self.if_to_deskew:
-                rt = self._tensor(summary[3:6])
-                surf_kf = _reskew(surf, surf_refl[:, 1], rt)
-                edge_rel, _ = pad_cloud(lf.edge_rel_time[:, None].expand(-1, 3), lf.edge_mask,
-                                        self.fusion_cfg.kf_edge_cap)
-                edge = _reskew(edge, edge_rel[:, 0], rt)
-                full = _reskew(pts, ratio, rt)
-            payload = LivoxKeyframePayload(surf_kf, surf_mask, surf_refl[:, 0], edge, edge_mask,
-                                           full, valid)
-        if defer_backend:
-            return out, payload
-        if payload is not None:
-            with self.metrics.stage("backend"):
-                self._on_livox_keyframe(payload, stamp)
-        self._maybe_publish_map(stamp)
-        return out
+            payload = None
+            if out.is_keyframe:
+                edge, edge_mask = pad_cloud(lf.edge_pts, lf.edge_mask, self.fusion_cfg.kf_edge_cap)
+                full, surf_kf = pts, surf
+                if self.if_to_deskew:
+                    rt = self._tensor(summary[3:6])
+                    surf_kf = _reskew(surf, surf_refl[:, 1], rt)
+                    edge_rel, _ = pad_cloud(lf.edge_rel_time[:, None].expand(-1, 3), lf.edge_mask,
+                                            self.fusion_cfg.kf_edge_cap)
+                    edge = _reskew(edge, edge_rel[:, 0], rt)
+                    full = _reskew(pts, ratio, rt)
+                payload = LivoxKeyframePayload(surf_kf, surf_mask, surf_refl[:, 0], edge, edge_mask,
+                                               full, valid)
+            if defer_backend:
+                return out, payload
+            if payload is not None:
+                with self.metrics.stage("backend"):
+                    self._on_livox_keyframe(payload, stamp)
+            self._maybe_publish_map(stamp)
+            return out
 
     def process_keyframe(self, fc, stamp: float):
         """Backend half of a deferred keyframe (see ``defer_backend``): the
         spin path's ``FeatureClouds`` or the Livox path's
-        :class:`LivoxKeyframePayload`."""
-        with self.metrics.stage("backend"):
-            if isinstance(fc, LivoxKeyframePayload):
-                self._on_livox_keyframe(fc, stamp)
-            else:
-                self._on_keyframe(fc, stamp)
-        self._maybe_publish_map(stamp)
+        :class:`LivoxKeyframePayload`. Its ``lom.scan`` span carries the
+        ordinal of the scan that made the keyframe."""
+        with self.metrics.entry("scan", lambda: self._scan_ordinal(stamp)):
+            with self.metrics.stage("backend"):
+                if isinstance(fc, LivoxKeyframePayload):
+                    self._on_livox_keyframe(fc, stamp)
+                else:
+                    self._on_keyframe(fc, stamp)
+            self._maybe_publish_map(stamp)
+
+    def _scan_ordinal(self, stamp: float) -> int:
+        """The ordinal of the latest scan at ``stamp`` (-1 if none)."""
+        for i in range(len(self._frame_stamps) - 1, -1, -1):
+            if self._frame_stamps[i] == stamp:
+                return i
+        return -1
 
     def _maybe_publish_map(self, stamp: float):
         """Call ``map_callback`` with the global map at the publish cadence
@@ -574,7 +597,7 @@ class LiliOmSystem:
         c = archive[i]
         if isinstance(c, tuple):
             sp, sm = c
-            c = _np(sp[sm])
+            c = _np(sp[sm], "kf_cloud")
             if self.archive_spill_dir is None:
                 archive[i] = c
         elif isinstance(c, str):
@@ -623,8 +646,10 @@ class LiliOmSystem:
         the last finite keyframe pose, keeping the map history. Returns True
         when a recovery happened."""
         fs = self.fusion_state
-        if bool(torch.isfinite(torch.cat([fs.t.reshape(-1), fs.q.reshape(-1),
-                                          fs.v.reshape(-1)])).all()):
+        with self.metrics.current(), host_read("isfinite"):
+            finite = bool(torch.isfinite(torch.cat([fs.t.reshape(-1), fs.q.reshape(-1),
+                                                    fs.v.reshape(-1)])).all())
+        if finite:
             return False
         t_seed, q_seed = np.zeros(3), np.array([1.0, 0, 0, 0])
         for i in range(len(self.kf_positions) - 1, -1, -1):
@@ -645,12 +670,14 @@ class LiliOmSystem:
         the previous and this keyframe, then chain-solve them anchored at
         both keyframe poses."""
         if self._prev_kf is None:
-            self.dense_trajectory.append((stamp, _np(fout.t_latest), _np(fout.q_latest)))
+            self.dense_trajectory.append((stamp, _np(fout.t_latest, "densify"),
+                                          _np(fout.q_latest, "densify")))
             return
         s0, t0, q0, v0 = self._prev_kf
         mids = [f for f in self._frame_stamps if s0 < f < stamp]
         if not mids:
-            self.dense_trajectory.append((stamp, _np(fout.t_latest), _np(fout.q_latest)))
+            self.dense_trajectory.append((stamp, _np(fout.t_latest, "densify"),
+                                          _np(fout.q_latest, "densify")))
             return
         sl = self._imu_slice(s0, stamp)
         if sl is None:
@@ -659,7 +686,7 @@ class LiliOmSystem:
         n = min(len(sl[0]), icap)
         d, a, g, vm = self._padded_imu(sl, icap)
         # sample index of each frame boundary within the IMU slice
-        stamps_abs = s0 + np.cumsum(_np(d)[:n])
+        stamps_abs = s0 + np.cumsum(_np(d, "densify")[:n])
         frames = (mids + [stamp])[:cap]
         fidx = np.zeros((cap,), np.int32)
         fidx[:len(frames)] = np.minimum(np.searchsorted(stamps_abs, np.asarray(frames)),
@@ -674,7 +701,7 @@ class LiliOmSystem:
                                      fout.q_latest, n_iters=8)
         F = chain.t.shape[0]
         packed = _np(torch.cat([chain.t.reshape(-1), chain.q.reshape(-1), fout.t_latest,
-                                fout.q_latest]))  # one transfer
+                                fout.q_latest]), "densify")  # one transfer
         ct, cq = packed[:3 * F].reshape(F, 3), packed[3 * F:7 * F].reshape(F, 4)
         for i, f in enumerate(frames[:-1]):
             self.dense_trajectory.append((f, ct[i], cq[i]))
@@ -687,7 +714,7 @@ class LiliOmSystem:
 
     def _graph_poses_np(self, g, n: int):
         """(t (n,3), q (n,4)) of graph ``g`` on the host, in one transfer."""
-        tq = _np(torch.cat([g.t[:n], g.q[:n]], dim=1))
+        tq = _np(torch.cat([g.t[:n], g.q[:n]], dim=1), "graph_poses")
         return tq[:, :3].copy(), tq[:, 3:].copy()
 
     def try_loop_closure(self, lock=None) -> bool:
@@ -698,24 +725,26 @@ class LiliOmSystem:
         (fired or not, the graph, the loop pairs, the debounce stamp and
         the reject counters); the other ranks take rank 0's graph and, when
         it fired, apply the same pose correction to their replicated
-        states. Returns whether a closure fired, on every rank."""
-        if self.mesh is None:
-            return self._attempt_closure(lock)
-        from ..parallel.sharded import broadcast_object
+        states. Returns whether a closure fired, on every rank. Its
+        ``lom.closure`` span carries the newest keyframe's ordinal."""
+        with self.metrics.entry("closure", len(self.kf_stamps) - 1):
+            if self.mesh is None:
+                return self._attempt_closure(lock)
+            from ..parallel.sharded import broadcast_object
 
-        out = None
-        if self.mesh.get_local_rank() == 0:
-            fired = self._attempt_closure(lock)
-            out = (fired, _host_tree(self.graph) if fired else None, list(self._loop_pairs),
-                   self.last_loop_stamp, dict(self.lc_rejects))
-        fired, graph, pairs, stamp, rejects = broadcast_object(self.mesh, out,
-                                                               group=self._closure_group)
-        if self.mesh.get_local_rank() != 0:
-            self._loop_pairs, self.last_loop_stamp, self.lc_rejects = pairs, stamp, rejects
-            if fired:
-                self.graph = _device_tree(graph, self.device)
-                self._correct_poses()
-        return fired
+            out = None
+            if self.mesh.get_local_rank() == 0:
+                fired = self._attempt_closure(lock)
+                out = (fired, _host_tree(self.graph) if fired else None, list(self._loop_pairs),
+                       self.last_loop_stamp, dict(self.lc_rejects))
+            fired, graph, pairs, stamp, rejects = broadcast_object(self.mesh, out,
+                                                                   group=self._closure_group)
+            if self.mesh.get_local_rank() != 0:
+                self._loop_pairs, self.last_loop_stamp, self.lc_rejects = pairs, stamp, rejects
+                if fired:
+                    self.graph = _device_tree(graph, self.device)
+                    self._correct_poses()
+            return fired
 
     def replicated_digest(self) -> str:
         """SHA-256 of the state every rank of a mesh holds alike: the
@@ -810,7 +839,8 @@ class LiliOmSystem:
                 src[0], src[1], tgt[0], tgt[1],
                 torch.zeros(3, dtype=self.dtype, device=self.device),
                 self._tensor([1.0, 0.0, 0.0, 0.0]), n_iters=lc.icp_iters, trim=lc.icp_trim)
-            fitness = float(res.fitness)
+            with host_read("icp_fitness"):
+                fitness = float(res.fitness)
         if not np.isfinite(fitness) or fitness > lc.icp_thres:
             self.lc_rejects["fitness"] += 1
             return False
@@ -819,7 +849,7 @@ class LiliOmSystem:
         t_corr = quat_rotate(res.q, t_mat) + res.t
         q_corr = quat_normalize(quat_mul(res.q, q_mat))
         max_corr = 2.0 * lc.search_radius if lc.max_correction is None else lc.max_correction
-        corr_norm = float(np.linalg.norm(_np(t_corr) - g_t[mature]))
+        corr_norm = float(np.linalg.norm(_np(t_corr, "correction") - g_t[mature]))
         if max_corr > 0.0 and corr_norm > max_corr:
             self.lc_rejects["max_correction"] += 1
             warnings.warn(f"loop candidate {mature}->{his} rejected: ICP correction "
@@ -964,12 +994,13 @@ class LiliOmSystem:
         g_t, g_q = self._graph_poses_np(self.graph, n)
         self.kf_positions = [g_t[i] for i in range(n)]
         M, W = self.fusion_cfg.local_map_width, self.fusion_cfg.window
-        wi = int(fs.write_idx)
-        hist_t, hist_q = _np(fs.hist_t).copy(), _np(fs.hist_q).copy()
+        with host_read("correction"):
+            wi = int(fs.write_idx)
+        hist_t, hist_q = _np(fs.hist_t, "correction").copy(), _np(fs.hist_q, "correction").copy()
         for j in range(min(n, M)):
             slot = (wi - 1 - j) % M
             hist_t[slot], hist_q[slot] = g_t[n - 1 - j], g_q[n - 1 - j]
-        win_t, win_q = _np(fs.t).copy(), _np(fs.q).copy()
+        win_t, win_q = _np(fs.t, "correction").copy(), _np(fs.q, "correction").copy()
         for j in range(min(n, W)):
             win_t[W - 1 - j], win_q[W - 1 - j] = g_t[n - 1 - j], g_q[n - 1 - j]
         self.fusion_state = fs._replace(

@@ -54,6 +54,7 @@ from ..models.fusion import (FusionConfig, FusionState, _build_maps, _finish, _i
                              _zero_batches, gate_batches, init_fusion_state, match_rows,
                              window_batches)
 from ..ops.preintegration import ImuNoise
+from ..utils.metrics import span
 from .sharded import all_gather_cat, mesh_device
 
 # values per gathered factor row: surf (normal 3, offset, score, mask), edge
@@ -122,14 +123,16 @@ def make_distributed_fusion(mesh, cfg: FusionConfig, noise: ImuNoise, axis: str 
         mid = _ingest(state, *args, cfg, noise)
         if warmup:
             return _finish(state, mid, *_zero_batches(mid, dtype), cfg, noise, warmup)
-        if not cfg.incremental_map:
-            # the batch maps of default_map_and_match, from the pre-insert ring
-            ms, mr, sm, me, em, enough = _build_maps(state, cfg)
-            mid = mid._replace(map_surf=ms, map_refl=mr, map_surf_mask=sm, map_edge=me,
-                               map_edge_mask=em, enough_map=enough)
-        sb, eb = _gather_batches(mesh, *match_rows(mid, cfg, surf_rows, edge_rows),
-                                 mid.win_surf_b.reshape(-1, 3), mid.win_edge_b.reshape(-1, 3))
-        sb, eb = gate_batches(*window_batches(sb, eb, cfg), mid.enough_map, dtype)
+        with span("fusion.match"):
+            if not cfg.incremental_map:
+                # the batch maps of default_map_and_match, from the pre-insert ring
+                ms, mr, sm, me, em, enough = _build_maps(state, cfg)
+                mid = mid._replace(map_surf=ms, map_refl=mr, map_surf_mask=sm, map_edge=me,
+                                   map_edge_mask=em, enough_map=enough)
+            sb, eb = _gather_batches(mesh, *match_rows(mid, cfg, surf_rows, edge_rows),
+                                     mid.win_surf_b.reshape(-1, 3),
+                                     mid.win_edge_b.reshape(-1, 3))
+            sb, eb = gate_batches(*window_batches(sb, eb, cfg), mid.enough_map, dtype)
         return _finish(state, mid, sb, eb, cfg, noise, warmup)
 
     return step, blocks

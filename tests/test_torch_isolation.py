@@ -67,7 +67,7 @@ RUNTIME_MODULES = ["lili_om_tpu_torch.apps.run_bag", "lili_om_tpu_torch.apps.run
                    "lili_om_tpu_torch.io.pcd", "lili_om_tpu_torch.io.rosbag",
                    "lili_om_tpu_torch.io.velodyne", "lili_om_tpu_torch.runtime.ingest",
                    "lili_om_tpu_torch.runtime.log", "lili_om_tpu_torch.runtime.native",
-                   "lili_om_tpu_torch.runtime.pipeline", "lili_om_tpu_torch.utils.timing"]
+                   "lili_om_tpu_torch.runtime.pipeline"]
 
 
 def _import_without_jax(mods):
