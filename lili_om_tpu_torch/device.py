@@ -1,5 +1,6 @@
-"""Device resolution shared by every entry point of the port, and the switch
-that holds the CUDA kernels against their plain versions."""
+"""Device resolution shared by every entry point of the port, the switch
+that holds the CUDA kernels against their plain versions, and the cache of
+constant tensors."""
 from __future__ import annotations
 
 import contextlib
@@ -7,6 +8,7 @@ import contextlib
 import torch
 
 _FORCE_PLAIN = False
+_CONSTS: dict = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -38,3 +40,15 @@ def use_kernel(x: torch.Tensor) -> bool:
     """Whether a dispatcher launches its CUDA kernel for tensor ``x``: it is
     on a CUDA device and :func:`plain_kernels` is not active."""
     return x.device.type == "cuda" and not _FORCE_PLAIN
+
+
+def const(values: tuple, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, uploaded once
+    per (values, dtype, device) and shared by every caller, who never
+    writes to it. A loop that reads it uploads nothing, so it neither
+    synchronizes nor stops a CUDA graph's capture."""
+    key = (values, dtype, device)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t

@@ -18,6 +18,9 @@ problem anchor at the post-solve values.
 
 The ``gn_tol`` early exit is a host loop (one device sync per iteration to
 read the step norm), stopping exactly where the JAX ``while_loop`` stops.
+One iteration is one body (:func:`_lm_iteration`): on a CUDA device it is
+captured once as a CUDA graph per :func:`lm_graph_key` and replayed each
+iteration (:class:`_LMGraph`); elsewhere it runs eagerly.
 
 ``incremental_map=False`` builds both match maps from the whole ring at
 every keyframe instead (:func:`_build_maps`, :func:`default_map_and_match`).
@@ -27,11 +30,12 @@ that searches each rank's share of the ring and merges the candidates.
 """
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
 
-from ..device import resolve_device
+from ..device import const, resolve_device
 from ..factors.imu import imu_factor_analytic, retract_state
 from ..factors.lidar import (EdgeFactorBatch, PlaneFactorBatch, body_points,
                              cauchy_weight, edge_residual, plane_residual)
@@ -438,7 +442,7 @@ def _assemble(ts, qs, vs, bas, bgs, preints, preint_Ws, prior, sb_on, sb_anchor,
 
     v0a, ba0a, bg0a = sb_anchor
     on = sb_on.to(dtype)
-    sbw = torch.tensor(cfg.sb_weights, dtype=dtype, device=dev)
+    sbw = const(tuple(cfg.sb_weights), dtype, dev)
     for i in range(W - 1):
         rsb, Jsb = speed_bias_prior(vs[i], bas[i], bgs[i], v0a[i], ba0a[i], bg0a[i],
                                     weights=sbw)
@@ -474,6 +478,167 @@ def _assemble(ts, qs, vs, bas, bgs, preints, preint_Ws, prior, sb_on, sb_anchor,
 
 def _retract_window(ts, qs, vs, bas, bgs, delta):
     return retract_state(ts, qs, vs, bas, bgs, delta.reshape(ts.shape[0], 15))
+
+
+# ---------------------------------------------------------------------------
+# The LM loop: one iteration body, run eagerly or replayed as a CUDA graph
+# ---------------------------------------------------------------------------
+
+
+class LMInputs(NamedTuple):
+    """What an LM iteration reads besides the window states: fixed over one
+    keyframe's loop."""
+
+    preints: Preint
+    preint_Ws: torch.Tensor  # (W-1,15,15) sqrt_info(preints)
+    prior: MarginalPrior
+    sb_on: torch.Tensor
+    sb_anchor: tuple  # (v, ba, bg) of window[0..W-2], pre-solve
+    surf: PlaneFactorBatch
+    edge: EdgeFactorBatch
+
+
+def _leaves(tree) -> list:
+    """The tensors of a nest of tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for x in tree for leaf in _leaves(x)]
+
+
+def _clone_tree(tree):
+    """A copy of a nest of tuples with every tensor cloned."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    vals = [_clone_tree(x) for x in tree]
+    return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+
+
+def _lm_iteration(cur, lam, prev_step, fixed: LMInputs, noise: ImuNoise, cfg: FusionConfig,
+                  adaptive: bool):
+    """One LM iteration: assemble, solve, λ update, retract. Adaptive: the
+    Marquardt-damped solve, λ ×lm_up when the step norm grew, ×lm_down
+    otherwise; else the ``damping`` solve. Returns (window states, λ, step
+    norm)."""
+    H, g = _assemble(*cur, fixed.preints, fixed.preint_Ws, fixed.prior, fixed.sb_on,
+                     fixed.sb_anchor, fixed.surf, fixed.edge, noise, cfg)
+    delta = solve_normal_lm(H, -g, lam) if adaptive else solve_normal(H, -g, cfg.damping)
+    step = torch.linalg.norm(delta)
+    lam = torch.clamp(torch.where(step > prev_step, lam * cfg.lm_up, lam * cfg.lm_down),
+                      1e-8, cfg.lm_max)
+    return _retract_window(*cur, delta), lam, step
+
+
+def _lm_converged(step: torch.Tensor, cfg: FusionConfig) -> bool:
+    with host_read("fusion_lm"):
+        return not bool(step > cfg.gn_tol)
+
+
+def _use_graph(dev: torch.device) -> bool:
+    """Whether the LM loop replays a captured graph: on a CUDA device."""
+    return dev.type == "cuda"
+
+
+def _lm_solve(cur, fixed: LMInputs, noise: ImuNoise, cfg: FusionConfig):
+    """The window's LM loop from the states ``cur``: up to ``max_num_iter``
+    iterations; with ``gn_tol`` > 0 one host read an iteration, stopping
+    once the step norm is ≤ ``gn_tol``. Returns (states, iterations run)."""
+    adaptive = cfg.gn_tol > 0.0 and cfg.lm_lam0 > 0.0
+    if _use_graph(cur[0].device):
+        return _LMGraph.get(cur, fixed, noise, cfg, adaptive).solve(cur, fixed, cfg)
+    dtype, dev = cur[0].dtype, cur[0].device
+    lam = torch.full((), cfg.lm_lam0, dtype=dtype, device=dev)
+    step = torch.full((), float("inf"), dtype=dtype, device=dev)
+    n_iter = 0
+    for n_iter in range(1, cfg.max_num_iter + 1):
+        cur, lam, step = _lm_iteration(cur, lam, step, fixed, noise, cfg, adaptive)
+        if cfg.gn_tol > 0.0 and _lm_converged(step, cfg):
+            break
+    return cur, n_iter
+
+
+def lm_graph_key(cur, fixed: LMInputs, noise: ImuNoise, cfg: FusionConfig,
+                 adaptive: bool) -> tuple:
+    """Everything a captured LM iteration bakes in: the device, the shape
+    and dtype of every input (so W and the keyframe caps), the kind of
+    solve, and the floats of ``cfg`` and ``noise`` that reach its kernels
+    as scalars or as constant tensors. ``lm_lam0`` and the step norm are
+    filled into buffers at each loop's start; ``gn_tol`` and
+    ``max_num_iter`` act on the host."""
+    leaves = _leaves((cur, fixed))
+    return (leaves[0].device, tuple((x.shape, x.dtype) for x in leaves), adaptive,
+            cfg.cauchy_c, tuple(cfg.sb_weights), cfg.damping, cfg.lm_up, cfg.lm_down,
+            cfg.lm_max, noise.g_norm)
+
+
+_LM_GRAPHS: dict = {}  # lm_graph_key -> _LMGraph
+_LM_GRAPHS_LOCK = threading.Lock()
+
+
+class _LMGraph:
+    """One LM iteration captured as a CUDA graph over static buffers. The
+    window states, λ and the step norm are read and written back in place,
+    so one replay feeds the next; the fixed inputs are copied in once a
+    keyframe. The lock keeps two systems' copy-in, replays and copy-out
+    from interleaving on the host, and an event orders them on the card
+    when the callers' streams differ."""
+
+    @classmethod
+    def get(cls, cur, fixed, noise, cfg, adaptive) -> "_LMGraph":
+        key = lm_graph_key(cur, fixed, noise, cfg, adaptive)
+        with _LM_GRAPHS_LOCK:
+            graph = _LM_GRAPHS.get(key)
+            if graph is None:
+                graph = _LM_GRAPHS[key] = cls(cur, fixed, noise, cfg, adaptive)
+                count("fusion.lm_captures", 1)
+        return graph
+
+    def __init__(self, cur, fixed, noise, cfg, adaptive):
+        dtype, self.dev = cur[0].dtype, cur[0].device
+        self.lock = threading.Lock()
+        self.cur = tuple(x.clone() for x in cur)
+        self.fixed = _clone_tree(fixed)
+        self.lam = torch.full((), cfg.lm_lam0, dtype=dtype, device=self.dev)
+        self.step = torch.full((), float("inf"), dtype=dtype, device=self.dev)
+        self.inputs = _leaves((self.cur, self.fixed))
+        self.done = torch.cuda.Event()  # the last loop's copy-out
+
+        def body():
+            new = _lm_iteration(self.cur, self.lam, self.step, self.fixed, noise, cfg, adaptive)
+            for buf, x in zip(self.cur + (self.lam, self.step), new[0] + new[1:]):
+                buf.copy_(x)
+
+        # warm up on a side stream (lazy handles and workspaces), then capture
+        # there; this thread's capture ignores other threads' CUDA calls
+        with torch.cuda.device(self.dev):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    body()
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                body()
+
+    def solve(self, cur, fixed, cfg):
+        """:func:`_lm_solve` by replays; the states are cloned out of the
+        buffers, which the next keyframe overwrites."""
+        with self.lock, torch.cuda.device(self.dev):
+            stream = torch.cuda.current_stream()
+            stream.wait_event(self.done)
+            for buf, x in zip(self.inputs, _leaves((cur, fixed))):
+                buf.copy_(x)
+            self.lam.fill_(cfg.lm_lam0)
+            self.step.fill_(float("inf"))
+            n_iter = 0
+            for n_iter in range(1, cfg.max_num_iter + 1):
+                self.graph.replay()
+                if cfg.gn_tol > 0.0 and _lm_converged(self.step, cfg):
+                    break
+            out = tuple(x.clone() for x in self.cur)
+            self.done.record(stream)
+        count("fusion.lm_replays", n_iter)
+        return out, n_iter
 
 
 # ---------------------------------------------------------------------------
@@ -643,47 +808,21 @@ def _finish(state: FusionState, mid: FusionMid, surf_batches, edge_batches,
             cfg: FusionConfig, noise: ImuNoise, warmup: bool):
     """Window solve, guarded write-back, marginalization, ring pose write-back."""
     W, M = cfg.window, cfg.local_map_width
-    dtype, dev = mid.ts.dtype, mid.ts.device
+    dev = mid.ts.device
     ts, qs, vs, bas, bgs = mid.ts, mid.qs, mid.vs, mid.bas, mid.bgs
     preints = mid.preints
     wi = state.write_idx.long()
     slots = (wi - (W - 1) + torch.arange(W, device=dev)) % M
 
-    sb_anchor = (vs[:-1], bas[:-1], bgs[:-1])  # pre-solve anchors
     preint_Ws = sqrt_info(preints)  # hoisted: depends on the covariances only
-
-    def assemble(ts, qs, vs, bas, bgs, anchor, imu_first_only=False):
-        return _assemble(ts, qs, vs, bas, bgs, preints, preint_Ws, state.prior,
-                         state.sb_anchor_on, anchor, surf_batches, edge_batches,
-                         noise, cfg, imu_first_only=imu_first_only)
+    fixed = LMInputs(preints, preint_Ws, state.prior, state.sb_anchor_on,
+                     (vs[:-1], bas[:-1], bgs[:-1]),  # pre-solve anchors
+                     surf_batches, edge_batches)
 
     cur = (ts, qs, vs, bas, bgs)
     if not warmup:
         with span("fusion.solve"):
-            n_iter = cfg.max_num_iter
-            if cfg.gn_tol > 0.0:
-                # adaptive LM: λ grows ×lm_up when the step norm grows, decays
-                # ×lm_down on contraction; host loop on the step norm
-                adaptive = cfg.lm_lam0 > 0.0
-                prev_step = torch.tensor(float("inf"), dtype=dtype, device=dev)
-                lam = torch.tensor(cfg.lm_lam0, dtype=dtype, device=dev)
-                for n_iter in range(1, cfg.max_num_iter + 1):
-                    H, g = assemble(*cur, sb_anchor)
-                    delta = solve_normal_lm(H, -g, lam) if adaptive else \
-                        solve_normal(H, -g, cfg.damping)
-                    step = torch.linalg.norm(delta)
-                    lam = torch.clamp(torch.where(step > prev_step, lam * cfg.lm_up,
-                                                  lam * cfg.lm_down), 1e-8, cfg.lm_max)
-                    cur = _retract_window(*cur, delta)
-                    prev_step = step
-                    with host_read("fusion_lm"):
-                        go_on = bool(step > cfg.gn_tol)
-                    if not go_on:
-                        break
-            else:
-                for _ in range(cfg.max_num_iter):
-                    H, g = assemble(*cur, sb_anchor)
-                    cur = _retract_window(*cur, solve_normal(H, -g, cfg.damping))
+            cur, n_iter = _lm_solve(cur, fixed, noise, cfg)
         count("fusion.lm_iters", n_iter)
     ts1, qs1, vs1, bas1, bgs1 = cur
     qs1 = unify_quaternion(qs1)
@@ -708,8 +847,9 @@ def _finish(state: FusionState, mid: FusionMid, surf_batches, edge_batches,
     if warmup:
         prior, sb_anchor_on = state.prior, state.sb_anchor_on
     else:
-        H, g = assemble(ts1, qs1, vs1, bas1, bgs1, (vs1[:-1], bas1[:-1], bgs1[:-1]),
-                        imu_first_only=True)
+        H, g = _assemble(ts1, qs1, vs1, bas1, bgs1, preints, preint_Ws, state.prior,
+                         state.sb_anchor_on, (vs1[:-1], bas1[:-1], bgs1[:-1]),
+                         surf_batches, edge_batches, noise, cfg, imu_first_only=True)
         J, r0 = schur_marginalize(H, g, 15)
         prior = MarginalPrior(J=J, r0=r0, t0=ts1[1:], q0=qs1[1:], v0=vs1[1:],
                               ba0=bas1[1:], bg0=bgs1[1:],

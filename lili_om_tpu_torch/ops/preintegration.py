@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import const
 from ..utils.math import exp_so3, hat, quat_conj, quat_mul, quat_normalize, quat_rotate, quat_to_rotmat
 
 O_P, O_R, O_V, O_BA, O_BG = 0, 3, 6, 9, 12
@@ -34,8 +35,9 @@ class ImuNoise(NamedTuple):
     g_norm: float = 9.805
 
     def g_vec(self, dtype=torch.float32, device=None) -> torch.Tensor:
-        """Gravity vector convention of the reference: -(0,0,g)."""
-        return torch.tensor([0.0, 0.0, -self.g_norm], dtype=dtype, device=device)
+        """Gravity vector convention of the reference: -(0,0,g); one shared
+        tensor per (g, dtype, device) (:func:`device.const`)."""
+        return const((0.0, 0.0, -self.g_norm), dtype, device)
 
     def noise_diag(self, dtype=torch.float32, device=None) -> torch.Tensor:
         """(18,) diagonal of the noise covariance."""
